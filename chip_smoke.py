@@ -1,0 +1,450 @@
+#!/usr/bin/env python
+"""Smoke check of the PyTorch/CUDA port (``nfisam_tpu_torch``) on one GPU.
+
+Run from the repository root with no arguments: ``python3 chip_smoke.py``
+(``--profile`` adds one solve under ``torch.profiler``).
+It needs one CUDA card and the CUDA toolkit (``nvcc``), imports nothing
+of JAX or of the JAX package, and exits non-zero if any phase fails:
+
+1. device: require CUDA; print the card's name and power limit;
+2. build: compile every kernel source (``nfisam_tpu_torch/csrc``);
+3. kernel vs plain: each kernel against its plain PyTorch version on the
+   card, at the solver's shapes and more, then both timed with CUDA
+   events;
+4. the case1 incremental NF-iSAM solve (6 poses, 2 landmarks, 6 steps) at
+   the journal configuration (2000 training samples per clique, K=9,
+   hidden 8, lr 0.025, <= 2000 Adam iterations with the w=25/tol=0.04
+   plateau stop, 1000 posterior draws, pose_first) for seeds 1-3, with
+   each kernel's launch count read around each solve;
+5. gates: median over seeds of the mean joint translation MMD against the
+   committed posteriors in ``data/case1_ref`` <= 2x the reference run1's,
+   and the kernel's z-space roundtrip residual on trained cliques <=
+   max(4x the plain version's, 1e-3);
+6. one ``{"kernels": [...]}`` JSON line, then the card's name and power
+   limit, then ``{"ok": true, "device": {...}}`` as the last line.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CASE1_FG = os.path.join(HERE, "data", "case1_factor_graph.fg")
+REF_DIR = os.path.join(HERE, "data", "case1_ref")
+SEEDS = (1, 2, 3)
+MMD_STEPS = (0, 1, 2, 3, 4, 5)
+MMD_SUBSET = 500
+MMD_GATE_FACTOR = 2.0
+KERNEL_TOL = 1e-5               # atol and rtol of the kernel check
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor f32 FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+# the journal-paper case1 configuration (the JAX package's bench.py)
+BENCH_ARGS = dict(posterior_sample_num=1000, local_sample_num=2000,
+                  flow_iterations=2000, num_knots=9, learning_rate=0.025,
+                  hidden_dim=8, average_window=25, loss_delta_tol=0.04,
+                  elimination_method="pose_first", mode_repair=False)
+
+
+def log(msg: str) -> None:
+    print(f"# {msg}", flush=True)
+
+
+# --------------------------------------------------------------------------
+# the solve and its gates (device-agnostic, so the tests can drive them)
+# --------------------------------------------------------------------------
+def solve_case1(seed: int, device, **overrides):
+    """One incremental case1 solve.  Returns (total_s, per-step timings
+    {"s", "surgery_s", "fit_s", "posterior_s", "iters"}, per-step host
+    samples {name: (n, dim)}, solver).  On a card every phase ends in a
+    synchronize, so its time is the device's too."""
+    from nfisam_tpu_torch.io import (graph_file_parser,
+                                     group_nodes_factors_incrementally)
+    from nfisam_tpu_torch.solver import NFiSAM, NFiSAMArgs
+
+    nodes, _, factors = graph_file_parser(CASE1_FG)
+    batches = group_nodes_factors_incrementally(nodes, factors,
+                                                incremental_step=1)
+    args = NFiSAMArgs(**{**BENCH_ARGS, **overrides, "seed": seed})
+    solver = NFiSAM(args, device=device)
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" \
+        else (lambda: None)
+    steps, per_step = [], []
+    for ns, fs in batches:
+        sync()
+        t0 = time.perf_counter()
+        for n in ns:
+            solver.add_node(n)
+        for f in fs:
+            solver.add_factor(f)
+        solver.update_physical_and_working_graphs()
+        t1 = time.perf_counter()
+        solver.fit_tree_density_models()
+        sync()
+        t2 = time.perf_counter()
+        samples = solver._samples = solver.sample_posterior()
+        sync()
+        t3 = time.perf_counter()
+        steps.append({"s": t3 - t0, "surgery_s": t1 - t0, "fit_s": t2 - t1,
+                      "posterior_s": t3 - t2,
+                      "iters": [int(t) for _, t in
+                                solver._temp_training_loss.values()]})
+        per_step.append({str(v.name): x.detach().cpu().numpy()
+                         for v, x in samples.items()})
+    return float(sum(s["s"] for s in steps)), steps, per_step, solver
+
+
+def _ref_block(mat, order, name2dim, names):
+    pos, cur = {}, 0
+    for n in order:
+        pos[n] = cur
+        cur += name2dim[n]
+    return np.hstack([mat[:, pos[n]:pos[n] + 2] for n in names])
+
+
+def accuracy_gate(per_step, name2dim):
+    """Joint translation MMD of one solve and of the reference's run1
+    against the committed posteriors (dynesty at steps 0-3, nested
+    sampling at 4-5), 500-sample subsets from ``default_rng(0)``, averaged
+    over steps.  Returns (ours, reference run1, per-step ours)."""
+    from nfisam_tpu_torch.eval import mmd
+
+    rng = np.random.default_rng(0)
+
+    def pick(A):
+        return A[rng.choice(len(A), min(MMD_SUBSET, len(A)), replace=False)]
+
+    ours, refs = [], []
+    for step in MMD_STEPS:
+        src = "dyn" if step <= 3 else "ns"
+        dyn = np.loadtxt(os.path.join(REF_DIR, f"{src}_step{step}.sample"))
+        with open(os.path.join(REF_DIR, f"{src}_step{step}_ordering")) as f:
+            dyn_order = f.read().split()
+        run1 = np.loadtxt(os.path.join(REF_DIR, f"run1_step{step}"))
+        with open(os.path.join(REF_DIR, f"run1_step{step}_ordering")) as f:
+            run1_order = f.read().split()
+        dyn_block = _ref_block(dyn, dyn_order, name2dim, dyn_order)
+        run1_block = _ref_block(run1, run1_order, name2dim, dyn_order)
+        our_block = np.hstack([per_step[step][n][:, :2] for n in dyn_order])
+        ours.append(mmd(pick(our_block), pick(dyn_block)))
+        refs.append(mmd(pick(run1_block), pick(dyn_block)))
+    return float(np.mean(ours)), float(np.mean(refs)), ours
+
+
+def median_gate(per_step_by_seed, name2dim):
+    """(median-seed MMD, reference run1 MMD, per-seed results)."""
+    results = [accuracy_gate(ps, name2dim) for ps in per_step_by_seed]
+    med = int(np.argsort([r[0] for r in results])[len(results) // 2])
+    return results[med][0], results[med][1], results
+
+
+def roundtrip_residuals(solver, inverse_fn, max_cliques: int = 3):
+    """z-space residual |forward(inverse(z)) - z| of ``inverse_fn`` and of
+    the plain inverse on up to ``max_cliques`` trained single-flow clique
+    models (first 2 columns pinned).  Returns (fn's, plain's, count)."""
+    from nfisam_tpu_torch.flows import stack_forward, stack_inverse_masked_plain
+
+    worst_fn = worst_plain = 0.0
+    checked = 0
+    for adapter in solver._clique_density_model.values():
+        model = adapter.model
+        cfg = model.cfg
+        if cfg.num_flows != 1:
+            continue        # the identity below holds per flow
+        rng = np.random.default_rng(0)
+        z = torch.as_tensor(rng.normal(size=(256, cfg.dim)).astype(
+            np.float32), device=model.device)
+        prefix = torch.zeros_like(z)
+        invert = torch.as_tensor(np.arange(cfg.dim) >= 2, device=z.device)
+        with torch.no_grad():
+            x_fn = inverse_fn(model.flow_params, z, prefix, invert, cfg)
+            x_pl = stack_inverse_masked_plain(model.flow_params, z, prefix,
+                                              invert, cfg)
+            z_fn, _ = stack_forward(model.flow_params, x_fn, cfg)
+            z_pl, _ = stack_forward(model.flow_params, x_pl, cfg)
+        keep = invert.cpu().numpy()
+        worst_fn = max(worst_fn, float(
+            (z_fn - z).abs().cpu().numpy()[:, keep].max()))
+        worst_plain = max(worst_plain, float(
+            (z_pl - z).abs().cpu().numpy()[:, keep].max()))
+        checked += 1
+        if checked >= max_cliques:
+            break
+    return worst_fn, worst_plain, checked
+
+
+# --------------------------------------------------------------------------
+# the kernel against its plain version
+# --------------------------------------------------------------------------
+def random_flow(rng, d, h, K, num_flows, device):
+    """Deterministic flow parameters (biases included) from a numpy RNG."""
+    p = 3 * K
+    flows = []
+    for _ in range(num_flows):
+        flows.append({
+            "W1": rng.uniform(-1, 1, (d, h, d)) /
+            np.sqrt(np.maximum(np.arange(d), 1))[:, None, None],
+            "b1": rng.uniform(-0.3, 0.3, (d, h)),
+            "W2": rng.uniform(-1, 1, (d, h, h)) / np.sqrt(h),
+            "b2": rng.uniform(-0.3, 0.3, (d, h)),
+            "W3": rng.uniform(-1, 1, (d, p, h)) / np.sqrt(h),
+            "b3": rng.uniform(-0.5, 0.5, (d, p))})
+    from nfisam_tpu_torch.flows import flow_params_from_numpy
+    return flow_params_from_numpy(flows, device)
+
+
+# (name, n, dim, hidden, knots, flows, sep_dim, circular dims)
+KERNEL_CASES = [
+    ("main n=1000 sep0", 1000, 16, 8, 9, 1, 0, ()),
+    ("main n=1000 sep1", 1000, 16, 8, 9, 1, 1, ()),
+    ("main n=1000 sep8", 1000, 16, 8, 9, 1, 8, ()),
+    ("main n=2000 sep0", 2000, 16, 8, 9, 1, 0, ()),
+    ("main n=2000 sep1", 2000, 16, 8, 9, 1, 1, ()),
+    ("main n=2000 sep8", 2000, 16, 8, 9, 1, 8, ()),
+    ("d32 h16", 1000, 32, 16, 9, 1, 4, ()),
+    ("circular", 1000, 16, 8, 9, 1, 2, (2, 5, 9)),
+    ("2-flow stack", 1000, 16, 8, 9, 2, 3, ()),
+    ("odd n K7", 999, 16, 8, 7, 1, 5, ()),
+    ("d64 h32 K12 odd n", 777, 64, 32, 12, 1, 6, (7,)),
+]
+# the shapes the timings are taken at: a case1 root clique's posterior
+# draw (n=1000) and a separator-factor draw in simulation (n=2000), d=16,
+# h=8, K=9, 1 flow, 2 observation columns pinned; the first is the
+# kernel line's
+TIMED_CASES = [("timed n=1000 sep2", 1000, 16, 8, 9, 1, 2, ()),
+               ("timed n=2000 sep2", 2000, 16, 8, 9, 1, 2, ())]
+
+
+def make_case(case, device, seed):
+    from nfisam_tpu_torch.flows import NSFConfig
+
+    _, n, d, h, K, flows, sep, circ = case
+    rng = np.random.default_rng(seed)
+    circular = tuple(i in circ for i in range(d)) if circ else ()
+    cfg = NSFConfig(dim=d, num_knots=K, hidden_dim=h, num_flows=flows,
+                    circular=circular)
+    params = random_flow(rng, d, h, K, flows, device)
+    z = torch.as_tensor((rng.normal(size=(n, d)) * 1.5).astype(np.float32),
+                        device=device)
+    mask = np.arange(d) >= sep
+    xp = rng.normal(size=(n, d)).astype(np.float32) * 0.8
+    xp[:, mask] = 0.0
+    return (cfg, params, z, torch.as_tensor(xp, device=device),
+            torch.as_tensor(mask, device=device))
+
+
+def ar_inverse_work(n: int, cfg, invert) -> tuple:
+    """(bytes, FLOPs) the masked inverse of one flow must move and do at
+    this shape: z, x_prefix and the weights read once, the output written
+    once; for each inverted dim i and sample, the three layers (2 FLOPs a
+    multiply-add, W1 over the i visible inputs), the tanh's, and the
+    spline (two K-bin softmaxes, K+1 softplus derivatives, the knots, the
+    bin search and select, the quadratic root), counted one FLOP an
+    operation, transcendentals included."""
+    d, h, K = cfg.dim, cfg.hidden_dim, cfg.num_knots
+    p = 3 * K
+    weights = d * (h * d + h + h * h + h + p * h + p)
+    nbytes = 4 * (3 * n * d + weights) + d
+    spline = 2 * (5 * K) + 4 * (K + 1) + 2 * 3 * (K - 1) + 2 * K + 8 * K + 25
+    per_dim = [2 * h * i + h + 2 * h * h + 2 * h + 2 * p * h + p + spline
+               for i in range(d) if invert[i]]
+    return nbytes, float(n * sum(per_dim))
+
+
+def time_cuda(fn, warmup: int = 5, repeats: int = 30) -> float:
+    """Median milliseconds of ``fn()`` over ``repeats`` CUDA-event-timed
+    calls after ``warmup`` untimed ones."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def check_ar_inverse(device) -> dict:
+    """The AR-inverse kernel against its plain version on every case, then
+    both timed at ``TIMED_CASES``.  Launches here are not counted as the
+    main path's: the caller resets the count before the solve."""
+    from nfisam_tpu_torch.flows import (stack_inverse_masked_cuda,
+                                        stack_inverse_masked_plain)
+
+    worst = worst_main = 0.0
+    for i, case in enumerate(KERNEL_CASES):
+        cfg, params, z, xp, mask = make_case(case, device, seed=100 + i)
+        with torch.no_grad():
+            got = stack_inverse_masked_cuda(params, z, xp, mask, cfg)
+            torch.cuda.synchronize()
+            ref = stack_inverse_masked_plain(params, z, xp, mask, cfg)
+        err = (got - ref).abs()
+        bad = err > KERNEL_TOL + KERNEL_TOL * ref.abs()
+        max_err = float(err.max())
+        log(f"ar_inverse {case[0]}: max |kernel - plain| {max_err:.3e}, "
+            f"finite {bool(torch.isfinite(got).all())}")
+        if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+            raise SystemExit(f"ar_inverse kernel disagrees with its plain "
+                             f"version on {case[0]}: max err {max_err:.3e}")
+        worst = max(worst, max_err)
+        if case[0].startswith("main"):
+            worst_main = max(worst_main, max_err)
+    log(f"ar_inverse: max |kernel - plain| {worst_main:.3e} at the main "
+        f"path's shapes, {worst:.3e} over all, within atol {KERNEL_TOL} + "
+        f"rtol {KERNEL_TOL}")
+
+    timed = []
+    for case in TIMED_CASES:
+        cfg, params, z, xp, mask = make_case(case, device, seed=7)
+        with torch.no_grad():
+            ms = time_cuda(lambda: stack_inverse_masked_cuda(
+                params, z, xp, mask, cfg))
+            plain_ms = time_cuda(lambda: stack_inverse_masked_plain(
+                params, z, xp, mask, cfg), warmup=2, repeats=10)
+        nbytes, flops = ar_inverse_work(z.shape[0], cfg, mask.cpu().numpy())
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        flops_ms = 1e3 * flops / F32_FLOP_PER_S
+        log(f"ar_inverse {case[0]}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms; bound {max(bytes_ms, flops_ms):.6f} ms "
+            f"({nbytes} B -> {bytes_ms:.6f} ms, {flops:.3e} FLOP -> "
+            f"{flops_ms:.6f} ms)")
+        timed.append((ms, plain_ms, bytes_ms, flops_ms))
+    ms, plain_ms, bytes_ms, flops_ms = timed[0]
+    return {"name": "ar_inverse_masked",
+            "route": "cuda",
+            "source": "nfisam_tpu_torch/csrc/ar_inverse.cu",
+            "replaces": "nfisam_tpu/flows/ar_inverse_pallas.py:168",
+            "launches": None,
+            "max_abs_err": worst_main,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "library_ms": None}
+
+
+def profile_solve(device) -> None:
+    """One more seed-1 solve under ``torch.profiler``: the device's busy
+    share of the solve's wall time and the kernels that fill it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _, _, _ = solve_case1(SEEDS[0], device)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    busy_s = sum(dev_us(e) for e in rows) / 1e6
+    if busy_s == 0.0:
+        log("profile: the profiler saw no device time (not measured)")
+        return
+    log(f"profile (seed {SEEDS[0]}, profiler on): wall {wall:.3f} s, "
+        f"device busy {busy_s:.3f} s ({100 * busy_s / wall:.1f}%), "
+        f"{sum(e.count for e in rows)} kernel launches")
+    for e in sorted(rows, key=dev_us, reverse=True)[:12]:
+        log(f"  {dev_us(e) / 1e3:9.2f} ms {e.count:7d}x  {e.key[:90]}")
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="also profile one solve with torch.profiler")
+    opts = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs only on a GPU",
+              file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    log(f"device: {kind} x{torch.cuda.device_count()}; {smi}; torch "
+        f"{torch.__version__} CUDA {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+    from nfisam_tpu_torch.io import graph_file_parser
+    from nfisam_tpu_torch.utils.cuda_build import build_all_kernels
+
+    build_s, built = build_all_kernels()
+    log(f"build: {len(built)} kernel source(s) in {build_s:.1f} s")
+    for src, (_, stderr) in built.items():
+        for line in stderr.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {os.path.basename(src)}: {line.strip()}")
+
+    entry = check_ar_inverse(device)
+
+    nodes, _, _ = graph_file_parser(CASE1_FG)
+    name2dim = {str(v.name): v.dim for v in nodes}
+    per_step_by_seed, launches, solver = [], [], None
+    for seed in SEEDS:
+        ar_inverse_kernel.launches = 0
+        total, steps, per_step, solver = solve_case1(seed, device)
+        launches.append(ar_inverse_kernel.launches)
+        log(f"case1 seed {seed}: total {total:.3f} s, ar_inverse launches "
+            f"{launches[-1]}")
+        for i, st in enumerate(steps):
+            log(f"  step {i}: {st['s']:.3f} s (surgery "
+                f"{st['surgery_s']:.4f}, fit {st['fit_s']:.3f}, posterior "
+                f"{st['posterior_s']:.4f}); Adam iterations {st['iters']}")
+        if launches[-1] == 0:
+            raise SystemExit("the case1 solve never launched the "
+                             "ar_inverse kernel")
+        for step, samples in enumerate(per_step):
+            for name, x in samples.items():
+                if not np.isfinite(x).all():
+                    raise SystemExit(f"non-finite posterior samples of "
+                                     f"{name} at step {step}, seed {seed}")
+        per_step_by_seed.append(per_step)
+    entry["launches"] = launches[0]
+
+    mmd_joint, ref_mmd, results = median_gate(per_step_by_seed, name2dim)
+    for seed, (ours, _, per) in zip(SEEDS, results):
+        log(f"seed {seed} joint MMD {ours:.4f}, per step "
+            f"{[round(x, 4) for x in per]}")
+    log(f"accuracy gate: median joint MMD {mmd_joint:.4f} vs "
+        f"{MMD_GATE_FACTOR}x reference run1 {ref_mmd:.4f}")
+    if not mmd_joint <= MMD_GATE_FACTOR * ref_mmd:
+        raise SystemExit("accuracy gate failed")
+
+    from nfisam_tpu_torch.flows import stack_inverse_masked_cuda
+    res_k, res_p, checked = roundtrip_residuals(solver,
+                                                stack_inverse_masked_cuda)
+    log(f"roundtrip residual on {checked} trained cliques: kernel "
+        f"{res_k:.3e}, plain {res_p:.3e}")
+    if checked == 0 or not res_k <= max(4.0 * res_p, 1e-3):
+        raise SystemExit("roundtrip residual gate failed")
+    if opts.profile:
+        profile_solve(device)
+
+    print(json.dumps({"kernels": [entry]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,2 @@
+from .simulation import (SimulationBasedSampler, SimulationSchedule,
+                         compile_schedule, execute_schedule)

@@ -1,0 +1,4 @@
+from .nfisam import (FlowModelAdapter, FlowsPriorFactor, NFiSAM, NFiSAMArgs,
+                     effective_hidden_dim)
+from .solver import (CliqueSeparatorFactor, ConditionalSampler,
+                     FactorGraphSolver, SolverArgs)

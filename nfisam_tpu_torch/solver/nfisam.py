@@ -1,0 +1,229 @@
+"""NF-iSAM: normalizing-flow clique density models on the Bayes tree.
+
+Counterpart of ``nfisam_tpu/solver/nfisam.py`` (sequential ``NFiSAM``):
+each clique's simulated samples are padded to a dim bucket, one NSF-AR
+flow is fitted to them, and the flow's separator marginal goes up the
+tree as a ``FlowsPriorFactor``.  Conditional draws go through the masked
+AR inverse, which is the CUDA kernel on a card.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..core.variables import Variable, circular_dim_list
+from ..flows.model import CliqueFlowModel
+from ..flows.nsf import NSFConfig
+from ..graph.bayes_tree import CliqueNode
+from ..train.trainer import TrainConfig, fit_flow_raw
+from .solver import (CliqueSeparatorFactor, ConditionalSampler,
+                     FactorGraphSolver, SolverArgs)
+
+
+@dataclass
+class NFiSAMArgs(SolverArgs):
+    elimination_method: str = "pose_first"
+    learning_rate: float = 0.015
+    flow_number: int = 1
+    flow_type: str = "NSF_AR"          # NSF_AR | NSF_AR_CS
+    flow_iterations: int = 2000
+    num_knots: int = 12
+    hidden_dim: int = 8
+    average_window: int = 50
+    loss_delta_tol: float = 1e-2
+    checkpoint_dir: Optional[str] = None
+
+    def train_config(self) -> TrainConfig:
+        return TrainConfig(
+            max_iters=self.flow_iterations,
+            learning_rate=self.learning_rate,
+            average_window=self.average_window,
+            loss_delta_tol=self.loss_delta_tol)
+
+
+# clique-dim bucketing: every clique pads up to the next power of two at
+# least this large, so a solve hits few flow shapes
+DIM_BUCKET_FLOOR = 16
+
+
+def effective_hidden_dim(args, aug_dim: int) -> int:
+    """Conditioner width for a clique of ``aug_dim`` columns: it grows
+    with the clique, max(hidden_dim, aug_dim // 2)."""
+    return max(int(args.hidden_dim), int(aug_dim) // 2)
+
+
+class FlowModelAdapter(ConditionalSampler):
+    """A ``CliqueFlowModel`` behind the solver's conditional-sampler
+    protocol; each draw takes the next key of the solver's stream."""
+
+    def __init__(self, model: CliqueFlowModel, key_source):
+        self.model = model
+        self._next_key = key_source
+
+    def conditional_sample_given_observation(self, conditional_dim,
+                                             obs_samples=None,
+                                             sample_number=None):
+        if obs_samples is None and sample_number is None:
+            raise ValueError("need obs_samples or sample_number")
+        n = sample_number if sample_number is not None else 0
+        out = self.model.conditional_sample(self._next_key(), n,
+                                            obs_samples=obs_samples)
+        return out[:, :conditional_dim] if conditional_dim else out
+
+
+class FlowsPriorFactor(CliqueSeparatorFactor):
+    """Separator-marginal factor backed by a trained flow."""
+
+    def __init__(self, vars: List[Variable], flow_model: CliqueFlowModel,
+                 true_obs: np.ndarray, circular_dim_list: List[bool],
+                 key_source) -> None:
+        self._vars = list(vars)
+        self._flow_model = flow_model
+        self._true_obs = np.asarray(true_obs, dtype=np.float64).reshape(-1)
+        self._obs_dim = self._true_obs.shape[0]
+        self._circular_dim_list = list(circular_dim_list)
+        self._next_key = key_source
+        if self.dim != len(self._circular_dim_list):
+            raise ValueError("circular_dim_list does not match the vars")
+
+    @property
+    def vars(self) -> List[Variable]:
+        return self._vars
+
+    @property
+    def circular_dim_list(self) -> List[bool]:
+        return self._circular_dim_list
+
+    def _obs_block(self, n: int) -> torch.Tensor:
+        return self._const("_true_obs", self._flow_model.device).expand(
+            n, self._obs_dim)
+
+    def _augment(self, x: torch.Tensor) -> torch.Tensor:
+        if self._obs_dim == 0:
+            return x
+        return torch.cat([self._obs_block(x.shape[0]), x], dim=1)
+
+    def log_pdf(self, x: torch.Tensor) -> torch.Tensor:
+        """Separator marginal log density (up to a constant: the stored
+        observation columns are fixed)."""
+        aug = self._augment(x.to(self._flow_model.device, torch.float32))
+        _, prior_lp, log_det = self._flow_model.separator_forward(aug)
+        return prior_lp + log_det
+
+    def sample(self, key, num_samples: int, device=None) -> torch.Tensor:
+        """Draws of the separator block (the flow's own device; trailing
+        columns beyond ``self.dim`` are the flow's frontal/pad columns)."""
+        if self._obs_dim == 0:
+            return self._flow_model.conditional_sample(key, num_samples)
+        return self._flow_model.conditional_sample(
+            key, 0, obs_samples=self._obs_block(num_samples))
+
+    def sample_conditional(self, key, prefix_samples: torch.Tensor
+                           ) -> torch.Tensor:
+        """Draw the remaining suffix of ``self.vars`` given samples of a
+        PREFIX of them (a sibling separator flow already drew the shared,
+        root-most variables); the AR flow conditions on
+        [true_obs | prefix] directly."""
+        prefix_full = self._augment(prefix_samples)
+        out = self._flow_model.conditional_sample(
+            key, 0, obs_samples=prefix_full)
+        suffix_dim = self.dim - (prefix_full.shape[1] - self._obs_dim)
+        return out[:, :suffix_dim]
+
+    def __str__(self) -> str:
+        return "Factor FlowsPriorFactor " + \
+            " ".join(str(v.name) for v in self._vars)
+
+
+class NFiSAM(FactorGraphSolver):
+    """Flow-based incremental solver, one clique at a time."""
+
+    def __init__(self, args: NFiSAMArgs = None, device=None):
+        args = args or NFiSAMArgs()
+        if args.checkpoint_dir is not None:
+            raise NotImplementedError(
+                "clique checkpoints are not ported yet; leave "
+                "checkpoint_dir unset")
+        if args.flow_type not in ("NSF_AR", "NSF_AR_CS"):
+            raise NotImplementedError(f"Unknown flow type {args.flow_type}")
+        super().__init__(args=args, device=device)
+        self._args: NFiSAMArgs = self._args
+
+    # ------------------------------------------------------------- fitting
+    def _flow_config(self, aug_dim: int,
+                     circular_dim_list: List[bool]) -> NSFConfig:
+        circ = () if self._args.flow_type == "NSF_AR" else \
+            tuple(bool(c) for c in circular_dim_list)
+        return NSFConfig(dim=aug_dim, num_knots=self._args.num_knots,
+                         hidden_dim=effective_hidden_dim(self._args,
+                                                         aug_dim),
+                         num_flows=self._args.flow_number, circular=circ)
+
+    def _dim_bucket(self, aug_dim: int) -> int:
+        """Bucketed flow dim for a clique of ``aug_dim`` columns."""
+        b = DIM_BUCKET_FLOOR
+        while b < aug_dim:
+            b *= 2
+        return b
+
+    def _pad_samples(self, samples: torch.Tensor):
+        """Pad trailing dummy N(0,1) columns so the flow dim lands on a
+        bucket boundary.  The columns come from numpy's ``default_rng``
+        seeded with the next key, as in the JAX package, so they are the
+        same numbers there and here."""
+        aug_dim = samples.shape[-1]
+        pad = self._dim_bucket(aug_dim) - aug_dim
+        if pad:
+            key = self._next_key()
+            rng = np.random.default_rng(int(key[1]))
+            cols = rng.normal(size=(samples.shape[0], pad)).astype(
+                np.float32)
+            samples = torch.cat([samples, torch.as_tensor(
+                cols, device=samples.device)], dim=1)
+        return samples, pad
+
+    def fit_clique_density_model(self, clique: CliqueNode, samples,
+                                 var_ordering: List[Variable]
+                                 ) -> FlowModelAdapter:
+        samples = samples.to(torch.float32)
+        aug_sep_dim = samples.shape[-1] - clique.frontal_dim
+        circ = circular_dim_list(var_ordering)
+        samples, pad = self._pad_samples(samples)
+        padded_circ = circ + [False] * pad
+        cfg = self._flow_config(samples.shape[-1], padded_circ)
+
+        params, iter_loss, n_iters, mean, std = fit_flow_raw(
+            self._next_key(), samples, cfg, self._args.train_config(),
+            padded_circ, scale_circular=(self._args.flow_type == "NSF_AR"))
+        clique_name = "".join(sorted(str(v.name) for v in clique.vars))
+        self._temp_training_loss[clique_name] = (iter_loss, n_iters)
+        model = CliqueFlowModel(cfg, params, mean, std, circ,
+                                aug_sep_dim, pad_dims=pad)
+        return FlowModelAdapter(model, self._next_key)
+
+    # ----------------------------------------------------------- recycling
+    def root_clique_density_model_to_leaf(self, old_clique: CliqueNode,
+                                          new_clique: CliqueNode
+                                          ) -> FlowModelAdapter:
+        old = self._clique_density_model[old_clique]
+        obs_dim = old.model.dim - old_clique.dim - old.model.pad_dims
+        sep_dim = new_clique.separator_dim + obs_dim
+        return FlowModelAdapter(old.model.with_separator_dim(sep_dim),
+                                self._next_key)
+
+    def clique_density_to_separator_factor(
+            self, separator_var_list: List[Variable],
+            density_model: FlowModelAdapter,
+            true_obs: np.ndarray) -> FlowsPriorFactor:
+        obs_dim = int(np.asarray(true_obs).reshape(-1).shape[0])
+        sep_dim = sum(v.dim for v in separator_var_list)
+        circ = density_model.model.circular_dim_list[
+            obs_dim:obs_dim + sep_dim]
+        return FlowsPriorFactor(vars=separator_var_list,
+                                flow_model=density_model.model,
+                                true_obs=np.asarray(true_obs).reshape(-1),
+                                circular_dim_list=circ,
+                                key_source=self._next_key)

@@ -1,0 +1,358 @@
+"""Incremental factor-graph solver core.
+
+Counterpart of ``nfisam_tpu/solver/solver.py``: physical vs working graph
+split, elimination orderings, incremental Bayes-tree surgery with
+density-model recycling, leaves-to-root clique fitting, and the
+root-to-leaf per-clique posterior walk.  All numeric work runs on the
+solver's device (``cuda`` unless the caller names another); the solver
+only sequences it.  Mode repair (the JAX package's evidence-aware
+recycling) is not ported yet: ``mode_repair`` defaults to off here and
+raises when switched on.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.variables import Variable
+from ..factors.factors import Factor, ImplicitPriorFactor
+from ..graph.bayes_tree import BayesTree, CliqueNode
+from ..graph.factor_graph import FactorGraph, pose_first_ordering
+from ..samplers.simulation import SimulationBasedSampler
+from ..utils.device import resolve_device
+from ..utils.keys import KeyStream
+
+
+@dataclass
+class SolverArgs:
+    elimination_method: str = "natural"      # natural | pose_first
+    posterior_sample_num: int = 500
+    local_sample_num: int = 500
+    seed: int = 0
+    mode_repair: bool = False
+
+
+class CliqueSeparatorFactor(ImplicitPriorFactor):
+    """Marker base for separator-marginal factors pushed up the tree."""
+
+
+class ConditionalSampler:
+    def conditional_sample_given_observation(self, conditional_dim,
+                                             obs_samples=None,
+                                             sample_number=None):
+        raise NotImplementedError
+
+
+class FactorGraphSolver:
+    """Incremental solver; density modeling is subclass policy."""
+
+    def __init__(self, args: SolverArgs, device=None):
+        if args.mode_repair:
+            raise NotImplementedError(
+                "mode repair is not ported yet; use mode_repair=False")
+        if args.elimination_method not in ("natural", "pose_first"):
+            raise NotImplementedError(
+                f"elimination method {args.elimination_method!r} is not "
+                f"ported yet; use 'pose_first' or 'natural'")
+        self._args = args
+        self.device = resolve_device(device)
+        self._physical_graph = FactorGraph()
+        self._working_graph = FactorGraph()
+        self._physical_bayes_tree: Optional[BayesTree] = None
+        self._working_bayes_tree: Optional[BayesTree] = None
+        self._implicit_factors: Dict[CliqueNode, Factor] = {}
+        self._samples: Dict[Variable, torch.Tensor] = {}
+        self._new_nodes: List[Variable] = []
+        self._new_factors: List[Factor] = []
+        self._clique_true_obs: Dict[CliqueNode, np.ndarray] = {}
+        self._clique_density_model: Dict[CliqueNode, object] = {}
+        self._clique_variable_pattern: Dict[CliqueNode, List[Variable]] = {}
+        self._elimination_ordering: List[Variable] = []
+        self._reverse_ordering_map: Dict[Variable, int] = {}
+        self._temp_training_loss: Dict[str, tuple] = {}
+        self._keys = KeyStream(args.seed)
+
+    # ------------------------------------------------------------ plumbing
+    def _next_key(self):
+        """Raw key derived on host."""
+        return self._keys()
+
+    @property
+    def physical_vars(self) -> List[Variable]:
+        return self._physical_graph.vars
+
+    @property
+    def working_vars(self) -> List[Variable]:
+        return self._working_graph.vars
+
+    @property
+    def physical_bayes_tree(self) -> Optional[BayesTree]:
+        return self._physical_bayes_tree
+
+    @property
+    def working_bayes_tree(self) -> Optional[BayesTree]:
+        return self._working_bayes_tree
+
+    def add_node(self, var: Variable) -> "FactorGraphSolver":
+        self._new_nodes.append(var)
+        return self
+
+    def add_factor(self, factor: Factor) -> "FactorGraphSolver":
+        self._new_factors.append(factor)
+        return self
+
+    # ------------------------------------------------------------ ordering
+    def generate_ordering(self) -> None:
+        natural = self._physical_graph.vars + self._new_nodes
+        if self._args.elimination_method == "natural":
+            self._elimination_ordering = natural
+        else:
+            self._elimination_ordering = pose_first_ordering(natural)
+        self._reverse_ordering_map = {
+            v: i for i, v in enumerate(self._elimination_ordering[::-1])}
+
+    # -------------------------------------------------------- incremental
+    def update_physical_and_working_graphs(self) -> "FactorGraphSolver":
+        """Fold new nodes/factors in, rebuild the working tree over affected
+        variables, recycle untouched models."""
+        old_nodes = set(self.physical_vars)
+        touched = set()
+        for f in self._new_factors:
+            touched |= set(f.vars)
+        touched &= old_nodes
+
+        if self._physical_bayes_tree is not None:
+            affected, sub_trees = \
+                self._physical_bayes_tree.prune_affected(touched)
+            # canonical subtree order: it decides separator-prior factor
+            # order in the working graph (=> schedules, key assignment)
+            sub_trees = sorted(sub_trees, key=lambda t: str(t.root))
+            self._working_graph = \
+                self._physical_graph.subgraph_with_separator_priors(
+                    affected, sub_trees, self._implicit_factors)
+        else:
+            sub_trees = []
+            self._working_graph = FactorGraph()
+        for node in self._new_nodes:
+            self._working_graph.add_node(node)
+        for factor in self._new_factors:
+            self._working_graph.add_factor(factor)
+
+        old_ordering = self._elimination_ordering
+        self.generate_ordering()
+        working_set = set(self.working_vars)
+        self._working_bayes_tree = self._working_graph.build_bayes_tree(
+            ordering=[v for v in self._elimination_ordering
+                      if v in working_set])
+
+        for node in self._new_nodes:
+            self._physical_graph.add_node(node)
+        for factor in self._new_factors:
+            self._physical_graph.add_factor(factor)
+
+        self._physical_bayes_tree = self._working_bayes_tree.copy()
+        self._physical_bayes_tree.graft_subtrees(sub_trees)
+
+        # a clique whose FRONTALS are touched by one of this step's factors
+        # is never recycled: the stale model predates the new evidence
+        new_factor_vars: set = set()
+        for f in self._new_factors:
+            new_factor_vars |= set(f.vars)
+        self._recycle_root_models(old_ordering,
+                                  no_recycle_frontal=new_factor_vars)
+
+        self._new_nodes = []
+        self._new_factors = []
+        return self
+
+    def _recycle_root_models(self, old_ordering: List[Variable],
+                             no_recycle_frontal: set = frozenset()
+                             ) -> None:
+        """An old clique that reappears with the same variables and
+        in-clique ordering keeps its density model after a
+        separator/frontal re-split; ``no_recycle_frontal`` blocks recycling
+        where one of those variables is frontal."""
+        stale = set(self._clique_density_model.keys()) - \
+            self._physical_bayes_tree.clique_nodes
+        if not stale:
+            return
+        by_vars: Dict[frozenset, CliqueNode] = {}
+        for nc in self._working_bayes_tree.clique_nodes:
+            by_vars[frozenset(nc.vars)] = nc
+        old_pos = {v: i for i, v in enumerate(old_ordering)}
+        new_pos = {v: i for i, v in enumerate(self._elimination_ordering)}
+        matches = []
+        for old_clique in sorted(stale, key=str):
+            new_clique = by_vars.get(frozenset(old_clique.vars))
+            if new_clique is None:
+                continue
+            if no_recycle_frontal & new_clique.frontal:
+                continue
+            old_cols = sorted(old_clique.vars, key=old_pos.__getitem__)
+            new_cols = sorted(new_clique.vars, key=new_pos.__getitem__)
+            if old_cols != new_cols:
+                continue
+            matches.append((old_clique, new_clique))
+        # leaf-to-root (deepest first): each without_clique drops a
+        # clique's frontals, so a parent goes only after every recycled
+        # child whose separator references them; ties str-sorted
+        depth: Dict[CliqueNode, int] = {}
+        for _, nc in matches:
+            d, node = 0, nc
+            while node.parent is not None:
+                node = node.parent
+                d += 1
+            depth[nc] = d
+        matches.sort(key=lambda on: (-depth[on[1]], str(on[0])))
+        for old_clique, new_clique in matches:
+            # a working-graph factor touching the frontals from outside
+            # the clique would dangle after elimination: retrain instead
+            frontal = new_clique.frontal
+            cvars = new_clique.vars
+            if any((set(f.vars) & frontal) and
+                   not set(f.vars).issubset(cvars)
+                   for f in self._working_graph.factors):
+                continue
+            self._clique_true_obs[new_clique] = \
+                self._clique_true_obs[old_clique]
+            if old_clique in self._clique_variable_pattern:
+                self._clique_variable_pattern[new_clique] = \
+                    self._clique_variable_pattern[old_clique]
+            self._clique_density_model[new_clique] = \
+                self.root_clique_density_model_to_leaf(
+                    old_clique, new_clique)
+            new_sep_factor = None
+            if new_clique.separator:
+                sep_list = sorted(
+                    new_clique.separator,
+                    key=lambda v: self._reverse_ordering_map[v])
+                new_sep_factor = self.clique_density_to_separator_factor(
+                    sep_list, self._clique_density_model[new_clique],
+                    self._clique_true_obs[old_clique])
+                self._implicit_factors[new_clique] = new_sep_factor
+            self._working_graph = self._working_graph.without_clique(
+                clique=new_clique, new_factor=new_sep_factor)
+        for old_clique in stale:
+            self._clique_density_model.pop(old_clique, None)
+            self._clique_true_obs.pop(old_clique, None)
+            self._clique_variable_pattern.pop(old_clique, None)
+
+    # ----------------------------------------------------------- inference
+    def incremental_inference(self) -> Dict[Variable, torch.Tensor]:
+        self.fit_tree_density_models()
+        self._samples = self.sample_posterior()
+        return self._samples
+
+    def fit_clique_density_model(self, clique, samples, var_ordering
+                                 ) -> "ConditionalSampler":
+        raise NotImplementedError
+
+    def root_clique_density_model_to_leaf(self, old_clique, new_clique):
+        raise NotImplementedError
+
+    def clique_density_to_separator_factor(self, separator_var_list,
+                                           density_model, true_obs):
+        raise NotImplementedError
+
+    def _evict_stale_value_matches(self) -> None:
+        """Evict models claimed by value-identical re-formed cliques:
+        ``CliqueNode`` equality is by variable content, so a working-tree
+        clique re-formed with the same frontal/separator sets hits its
+        pre-update model.  A re-form still has non-separator factors
+        touching its frontals (recycling eliminated them); drop its model
+        so it retrains."""
+        if self._working_bayes_tree is None:
+            return
+        for clique in list(self._working_bayes_tree.clique_nodes):
+            if clique not in self._clique_density_model:
+                continue
+            sub = self._working_graph.clique_subgraph(clique)
+            live = any(
+                (set(f.vars) & clique.frontal)
+                and not isinstance(f, CliqueSeparatorFactor)
+                for f in sub.factors)
+            if live:
+                self._clique_density_model.pop(clique, None)
+                self._clique_true_obs.pop(clique, None)
+                self._clique_variable_pattern.pop(clique, None)
+
+    def fit_tree_density_models(self) -> None:
+        """Leaves-to-root clique loop: simulate, fit, push the separator
+        marginal up as a prior factor."""
+        self._temp_training_loss = {}
+        self._evict_stale_value_matches()
+        clique_ordering = self._working_bayes_tree.clique_ordering()
+        while clique_ordering:
+            clique = clique_ordering.pop()
+            if clique in self._clique_density_model:
+                continue
+            local_samples, sample_var_ordering, true_obs = \
+                self.clique_training_sampler(
+                    clique, num_samples=self._args.local_sample_num)
+            model = self.fit_clique_density_model(
+                clique=clique, samples=local_samples,
+                var_ordering=sample_var_ordering)
+            self._clique_true_obs[clique] = true_obs
+            self._clique_density_model[clique] = model
+            new_sep_factor = None
+            if clique.separator:
+                sep_list = sorted(
+                    clique.separator,
+                    key=lambda v: self._reverse_ordering_map[v])
+                new_sep_factor = self.clique_density_to_separator_factor(
+                    sep_list, model, true_obs)
+                self._implicit_factors[clique] = new_sep_factor
+            self._working_graph = self._working_graph.without_clique(
+                clique=clique, new_factor=new_sep_factor)
+
+    def clique_training_sampler(self, clique: CliqueNode, num_samples: int):
+        """Training samples for one clique by ancestral simulation."""
+        subgraph = self._working_graph.clique_subgraph(clique)
+        pattern = self._working_bayes_tree.clique_variable_pattern(clique)
+        sampler = SimulationBasedSampler(factors=subgraph.factors,
+                                         vars=pattern, device=self.device)
+        return sampler.sample(self._next_key(), num_samples)
+
+    def sample_posterior(self) -> Dict[Variable, torch.Tensor]:
+        """Root-to-leaf conditional sampling, one clique at a time: each
+        clique draws its frontals given [observations | separator samples]
+        already drawn above it.  Returns Variable -> (n, dim) tensors on
+        the solver's device."""
+        num_samples = self._args.posterior_sample_num
+        stack = [self._physical_bayes_tree.root]
+        samples: Dict[Variable, torch.Tensor] = {}
+        while stack:
+            clique = stack.pop()
+            frontal_list = sorted(
+                clique.frontal, key=lambda v: self._reverse_ordering_map[v])
+            separator_list = sorted(
+                clique.separator,
+                key=lambda v: self._reverse_ordering_map[v])
+            model = self._clique_density_model[clique]
+            obs = self._clique_true_obs[clique]
+
+            blocks = []
+            if len(obs) != 0:
+                blocks.append(torch.as_tensor(
+                    np.asarray(obs, np.float32), device=self.device
+                ).expand(num_samples, len(obs)))
+            for v in separator_list:
+                blocks.append(samples[v])
+            if blocks:
+                frontal = model.conditional_sample_given_observation(
+                    conditional_dim=clique.frontal_dim,
+                    obs_samples=torch.cat(blocks, dim=1))
+            else:
+                frontal = model.conditional_sample_given_observation(
+                    conditional_dim=clique.frontal_dim,
+                    sample_number=num_samples)
+            cur = 0
+            for v in frontal_list:
+                samples[v] = frontal[:, cur:cur + v.dim]
+                cur += v.dim
+            # canonical child order: key consumption is hash-seed free
+            stack.extend(sorted(clique.children, key=str))
+        return samples
