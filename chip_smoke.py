@@ -7,10 +7,14 @@ It needs one CUDA card and the CUDA toolkit (``nvcc``), imports nothing
 of JAX or of the JAX package, and exits non-zero if any phase fails:
 
 1. device: require CUDA; print the card's name and power limit;
-2. build: compile every kernel source (``nfisam_tpu_torch/csrc``);
+2. build: compile every kernel source (``nfisam_tpu_torch/csrc``); print
+   each instantiation's registers, local memory, shared memory and block
+   shape, and fail if one uses local memory (a stack frame or spills);
 3. kernel vs plain: each kernel against its plain PyTorch version on the
-   card, at the solver's shapes and more, then both timed with CUDA
-   events;
+   card, at the solver's shapes and edge cases, then both timed with CUDA
+   events at the main path's shapes, at d=32 and d=64, and with every
+   column pinned: a call as the host sees it (the kernel line's ``ms``),
+   and the kernel's device time alone;
 4. the case1 incremental NF-iSAM solve (6 poses, 2 landmarks, 6 steps) at
    the journal configuration (2000 training samples per clique, K=9,
    hidden 8, lr 0.025, <= 2000 Adam iterations with the w=25/tol=0.04
@@ -200,7 +204,7 @@ def random_flow(rng, d, h, K, num_flows, device):
     return flow_params_from_numpy(flows, device)
 
 
-# (name, n, dim, hidden, knots, flows, sep_dim, circular dims)
+# (name, n, dim, hidden, knots, flows, sep_dim, circular dims[, z scale])
 KERNEL_CASES = [
     ("main n=1000 sep0", 1000, 16, 8, 9, 1, 0, ()),
     ("main n=1000 sep1", 1000, 16, 8, 9, 1, 1, ()),
@@ -213,25 +217,42 @@ KERNEL_CASES = [
     ("2-flow stack", 1000, 16, 8, 9, 2, 3, ()),
     ("odd n K7", 999, 16, 8, 7, 1, 5, ()),
     ("d64 h32 K12 odd n", 777, 64, 32, 12, 1, 6, (7,)),
+    ("n=1", 1, 16, 8, 9, 1, 2, ()),
+    ("n=17", 17, 16, 8, 9, 1, 2, ()),
+    ("all pinned sep16", 1000, 16, 8, 9, 1, 16, ()),
+    ("sep15", 1000, 16, 8, 9, 1, 15, ()),
+    ("circular first inverted", 1000, 16, 8, 9, 1, 3, (3, 11)),
+    ("z beyond the tail bound", 1000, 16, 8, 9, 1, 2, (), 6.0),
+    ("d32 h16 K12", 1000, 32, 16, 12, 1, 4, ()),
+    ("d64 h32 K7", 500, 64, 32, 7, 1, 3, ()),
+    ("d64 h32 K9", 500, 64, 32, 9, 1, 0, (10,)),
 ]
 # the shapes the timings are taken at: a case1 root clique's posterior
 # draw (n=1000) and a separator-factor draw in simulation (n=2000), d=16,
 # h=8, K=9, 1 flow, 2 observation columns pinned; the first is the
-# kernel line's
+# kernel line's; then the d=32 and d=64 dim buckets at n=1000, and every
+# column pinned (no dim step: the launch, the loads and the store alone)
 TIMED_CASES = [("timed n=1000 sep2", 1000, 16, 8, 9, 1, 2, ()),
-               ("timed n=2000 sep2", 2000, 16, 8, 9, 1, 2, ())]
+               ("timed n=2000 sep2", 2000, 16, 8, 9, 1, 2, ()),
+               ("timed d32 n=1000 sep2", 1000, 32, 16, 9, 1, 2, ()),
+               ("timed d64 n=1000 sep2", 1000, 64, 32, 9, 1, 2, ()),
+               ("timed n=1000 all pinned", 1000, 16, 8, 9, 1, 16, ())]
+# cycles of the sleep kernel that holds the stream while a call is queued
+# (~1 ms), so that the events time the device's work alone
+HOLD_CYCLES = 2_000_000
 
 
 def make_case(case, device, seed):
     from nfisam_tpu_torch.flows import NSFConfig
 
-    _, n, d, h, K, flows, sep, circ = case
+    _, n, d, h, K, flows, sep, circ, *z_scale = case
     rng = np.random.default_rng(seed)
     circular = tuple(i in circ for i in range(d)) if circ else ()
     cfg = NSFConfig(dim=d, num_knots=K, hidden_dim=h, num_flows=flows,
                     circular=circular)
     params = random_flow(rng, d, h, K, flows, device)
-    z = torch.as_tensor((rng.normal(size=(n, d)) * 1.5).astype(np.float32),
+    z = torch.as_tensor((rng.normal(size=(n, d)) *
+                         (z_scale[0] if z_scale else 1.5)).astype(np.float32),
                         device=device)
     mask = np.arange(d) >= sep
     xp = rng.normal(size=(n, d)).astype(np.float32) * 0.8
@@ -258,9 +279,13 @@ def ar_inverse_work(n: int, cfg, invert) -> tuple:
     return nbytes, float(n * sum(per_dim))
 
 
-def time_cuda(fn, warmup: int = 5, repeats: int = 30) -> float:
+def time_cuda(fn, warmup: int = 5, repeats: int = 30,
+              hold: bool = False) -> float:
     """Median milliseconds of ``fn()`` over ``repeats`` CUDA-event-timed
-    calls after ``warmup`` untimed ones."""
+    calls after ``warmup`` untimed ones.  With ``hold`` a sleep kernel
+    keeps the stream busy while the call is queued, so the events time the
+    device's work alone; without, they also take in the host's time to
+    issue the call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -268,6 +293,8 @@ def time_cuda(fn, warmup: int = 5, repeats: int = 30) -> float:
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -309,17 +336,19 @@ def check_ar_inverse(device) -> dict:
     for case in TIMED_CASES:
         cfg, params, z, xp, mask = make_case(case, device, seed=7)
         with torch.no_grad():
-            ms = time_cuda(lambda: stack_inverse_masked_cuda(
-                params, z, xp, mask, cfg))
+            def call():
+                return stack_inverse_masked_cuda(params, z, xp, mask, cfg)
+            ms = time_cuda(call)
+            device_ms = time_cuda(call, hold=True)
             plain_ms = time_cuda(lambda: stack_inverse_masked_plain(
                 params, z, xp, mask, cfg), warmup=2, repeats=10)
         nbytes, flops = ar_inverse_work(z.shape[0], cfg, mask.cpu().numpy())
         bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         flops_ms = 1e3 * flops / F32_FLOP_PER_S
-        log(f"ar_inverse {case[0]}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.3f} ms; bound {max(bytes_ms, flops_ms):.6f} ms "
-            f"({nbytes} B -> {bytes_ms:.6f} ms, {flops:.3e} FLOP -> "
-            f"{flops_ms:.6f} ms)")
+        log(f"ar_inverse {case[0]}: kernel {ms:.5f} ms a call, "
+            f"{device_ms:.5f} ms on the device; plain {plain_ms:.3f} ms; "
+            f"bound {max(bytes_ms, flops_ms):.6f} ms ({nbytes} B -> "
+            f"{bytes_ms:.6f} ms, {flops:.3e} FLOP -> {flops_ms:.6f} ms)")
         timed.append((ms, plain_ms, bytes_ms, flops_ms))
     ms, plain_ms, bytes_ms, flops_ms = timed[0]
     return {"name": "ar_inverse_masked",
@@ -333,6 +362,31 @@ def check_ar_inverse(device) -> dict:
             "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
             "library_ms": None}
+
+
+def build_report() -> None:
+    """Each AR-inverse instantiation's block shape, registers, local
+    memory and dynamic shared memory, as the runtime reads them from the
+    built cubin (ptxas's figures: spills and a stack frame are local
+    memory); fails if any instantiation uses local memory."""
+    from nfisam_tpu_torch.flows.ar_inverse import (SUPPORTED_DIM_HIDDEN,
+                                                   SUPPORTED_KNOTS,
+                                                   ar_inverse_kernel)
+
+    local = []
+    for d, h in SUPPORTED_DIM_HIDDEN:
+        for K in SUPPORTED_KNOTS:
+            info = ar_inverse_kernel.info(d, h, K)
+            log(f"ar_inverse d={d} h={h} K={K}: {info['threads']} threads "
+                f"({info['samples']} samples) a block, {info['registers']} "
+                f"registers, {info['local_bytes']} B local (stack and "
+                f"spills), {info['smem_bytes']} B dynamic shared memory, "
+                f"{info['slots']} ring slots")
+            if info["local_bytes"]:
+                local.append((d, h, K))
+    if local:
+        raise SystemExit(f"ar_inverse instantiations with local memory "
+                         f"(stack or spills): {local}")
 
 
 def profile_solve(device) -> None:
@@ -388,10 +442,7 @@ def main() -> int:
 
     build_s, built = build_all_kernels()
     log(f"build: {len(built)} kernel source(s) in {build_s:.1f} s")
-    for src, (_, stderr) in built.items():
-        for line in stderr.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {os.path.basename(src)}: {line.strip()}")
+    build_report()
 
     entry = check_ar_inverse(device)
 
@@ -402,8 +453,9 @@ def main() -> int:
         ar_inverse_kernel.launches = 0
         total, steps, per_step, solver = solve_case1(seed, device)
         launches.append(ar_inverse_kernel.launches)
-        log(f"case1 seed {seed}: total {total:.3f} s, ar_inverse launches "
-            f"{launches[-1]}")
+        log(f"case1 seed {seed}: total {total:.3f} s, posterior "
+            f"{sum(st['posterior_s'] for st in steps)} s, ar_inverse "
+            f"launches {launches[-1]}")
         for i, st in enumerate(steps):
             log(f"  step {i}: {st['s']:.3f} s (surgery "
                 f"{st['surgery_s']:.4f}, fit {st['fit_s']:.3f}, posterior "

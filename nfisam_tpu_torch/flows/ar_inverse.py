@@ -3,9 +3,10 @@
 ``ar_inverse_kernel`` launches ``csrc/ar_inverse.cu`` (the port of the
 Pallas TPU kernel ``nfisam_tpu/flows/ar_inverse_pallas.py``) on CUDA
 tensors: one launch per flow, the whole sequential-in-dim inverse of that
-flow fused.  It takes nothing but contiguous float32 CUDA tensors at a
-(dim, hidden, knots) it has an instantiation for, raises on anything else,
-and never falls back.  The library is built with ``nvcc`` at first use.
+flow fused.  It takes nothing but contiguous float32 CUDA tensors (the
+weights 16-byte aligned, for the kernel's bulk copies) at a (dim, hidden,
+knots) it has an instantiation for, raises on anything else, and never
+falls back.  The library is built with ``nvcc`` at first use.
 
 ``flow_inverse_masked_plain`` / ``stack_inverse_masked_plain`` are the
 same function in plain PyTorch (``nsf.flow_inverse_masked``); the model
@@ -28,6 +29,10 @@ from .rqs import BOUNDARY_RAW_DERIV
 # least 8) and the knot counts the kernel is instantiated for
 SUPPORTED_DIM_HIDDEN = ((16, 8), (32, 16), (64, 32))
 SUPPORTED_KNOTS = (7, 9, 12)
+WEIGHTS = ("W1", "b1", "W2", "b2", "W3", "b3")
+# what ``ARInverseKernel.info`` reports, in the C function's order
+INFO_FIELDS = ("registers", "local_bytes", "smem_bytes", "threads",
+               "samples", "slots")
 
 
 # the plain PyTorch versions: one flow, and the stack (last flow first)
@@ -55,6 +60,21 @@ class ARInverseKernel:
             [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         self._lib = lib
+
+    def info(self, d: int, h: int, K: int) -> Dict[str, int]:
+        """Build facts of the (d, h, K) instantiation on the current card:
+        registers and local (spill) bytes a thread, dynamic shared memory
+        bytes, threads and samples a block, and weight ring slots."""
+        self.load()
+        fn = self._lib.nfisam_ar_inverse_info
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * len(INFO_FIELDS))()
+        err = fn(d, h, K, out)
+        if err != 0:
+            raise RuntimeError(f"ar_inverse kernel: no build facts for "
+                               f"d={d}, h={h}, K={K}: cudaError_t {err}")
+        return dict(zip(INFO_FIELDS, out))
 
     def _circular_flags(self, cfg: NSFConfig, device) -> torch.Tensor:
         key = (cfg.circular, cfg.dim, str(device))
@@ -92,6 +112,10 @@ class ARInverseKernel:
                     f"tensor of shape {shape} on {z_full.device}, got "
                     f"{t.dtype} {tuple(t.shape)} on {t.device}"
                     f"{'' if t.is_contiguous() else ' (non-contiguous)'}")
+        for name in WEIGHTS:
+            if params[name].data_ptr() % 16:
+                raise ValueError(f"ar_inverse kernel: {name} must be 16-byte "
+                                 f"aligned (the kernel bulk-copies it)")
         if invert_mask.dtype != torch.bool or \
                 tuple(invert_mask.shape) != (d,) or \
                 invert_mask.device != z_full.device:

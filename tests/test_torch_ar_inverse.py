@@ -119,6 +119,29 @@ def test_main_path_shape_matches_pallas(sep_dim):
                                np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("n, sep_dim, z_scale", [(1, 2, 1.0), (50, 9, 1.0),
+                                                  (50, 8, 1.0), (200, 3, 6.0)],
+                         ids=["n=1", "all pinned", "sep=d-1",
+                              "z beyond the tail bound"])
+def test_edge_cases_match_pallas(n, sep_dim, z_scale):
+    """One sample; every column pinned (the output is the prefix); only
+    the last column inverted; z beyond the tail bound (the identity
+    branch)."""
+    jcfg, cfg, jparams, params, z, xp, mask = _setup(
+        9, n=n, K=9, seed=11, sep_dim=sep_dim)
+    z = z * np.float32(z_scale)
+    ref = flow_inverse_masked_pallas(jparams[0], jnp.asarray(z),
+                                     jnp.asarray(xp), jnp.asarray(mask),
+                                     jcfg, interpret=True)
+    got = _plain(params, z, xp, mask, cfg)
+    np.testing.assert_allclose(got, np.asarray(ref), **TOL)
+    np.testing.assert_array_equal(got[:, ~mask], xp[:, ~mask])
+    if z_scale > 1.0:
+        outside = np.abs(z) > cfg.tail_bound
+        assert outside[:, mask].any()
+        np.testing.assert_array_equal(got[outside & mask], z[outside & mask])
+
+
 def test_cpu_tensors_take_the_plain_version_and_the_kernel_refuses_them():
     assert _select_inverse_fn(torch.device("cpu")) is \
         stack_inverse_masked_plain

@@ -74,6 +74,35 @@ def test_cuda_kernel_raises_on_bad_inputs(cuda):
     assert ar_inverse_kernel.launches == before
 
 
+def test_cuda_kernel_raises_on_misaligned_weights(cuda):
+    """The kernel bulk-copies the weights, which needs 16-byte alignment:
+    a view off that alignment is refused, not launched."""
+    _, (cfg, params, z, xp, mask) = _case(
+        ("misaligned", 100, 16, 8, 9, 1, 2, ()))
+    before = ar_inverse_kernel.launches
+    for name in ("W1", "b3"):
+        t = params[0][name]
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        moved = buf[1:].view(t.shape)
+        moved.copy_(t)
+        with pytest.raises(ValueError, match="16-byte"):
+            ar_inverse_kernel({**params[0], name: moved}, z, xp, mask, cfg)
+    assert ar_inverse_kernel.launches == before
+
+
+def test_cuda_build_facts_of_every_instantiation(cuda):
+    """Every instantiation runs without spills in one block of 128
+    threads, and its dynamic shared memory fits one SM."""
+    from nfisam_tpu_torch.flows.ar_inverse import (SUPPORTED_DIM_HIDDEN,
+                                                   SUPPORTED_KNOTS)
+    for d, h in SUPPORTED_DIM_HIDDEN:
+        for K in SUPPORTED_KNOTS:
+            info = ar_inverse_kernel.info(d, h, K)
+            assert info["local_bytes"] == 0, (d, h, K, info)
+            assert info["threads"] == 128 and info["smem_bytes"] <= 232448
+            assert info["slots"] == (d if d < 64 else 3)
+
+
 def test_cuda_model_draws_through_the_kernel(cuda):
     """A clique model on the card samples through the kernel, one launch
     per flow per draw."""
