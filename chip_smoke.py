@@ -15,21 +15,39 @@ of JAX or of the JAX package, and exits non-zero if any phase fails:
    events at the main path's shapes, at d=32 and d=64, and with every
    column pinned: a call as the host sees it (the kernel line's ``ms``),
    and the kernel's device time alone;
-4. the case1 incremental NF-iSAM solve (6 poses, 2 landmarks, 6 steps) at
-   the journal configuration (2000 training samples per clique, K=9,
+4. case1 by the sequential ``NFiSAM`` (6 poses, 2 landmarks, 6 steps)
+   at the journal configuration (2000 training samples per clique, K=9,
    hidden 8, lr 0.025, <= 2000 Adam iterations with the w=25/tol=0.04
-   plateau stop, 1000 posterior draws, pose_first) for seeds 1-3, with
-   each kernel's launch count read around each solve;
-5. gates: median over seeds of the mean joint translation MMD against the
-   committed posteriors in ``data/case1_ref`` <= 2x the reference run1's,
-   and the kernel's z-space roundtrip residual on trained cliques <=
-   max(4x the plain version's, 1e-3);
-6. one ``{"kernels": [...]}`` JSON line, then the card's name and power
-   limit, then ``{"ok": true, "device": {...}}`` as the last line.
+   plateau stop, 1000 posterior draws, pose_first) for seeds 1-3, then
+   the gates: median over seeds of the mean joint translation MMD against
+   the committed posteriors in ``data/case1_ref`` <= 2x the reference
+   run1's, and the kernel's z-space roundtrip residual on trained cliques
+   <= max(4x the plain version's, 1e-3);
+5. case1 by ``ParallelNFiSAM`` (the JAX package's bench.py solver:
+   wavefront training, the fused posterior pass) for seeds 1-3, the same
+   MMD gate; its seed-1 solve gives the kernel line's launch count;
+6. plaza1's first 10 incremental steps (5 poses a step) by
+   ``ParallelNFiSAM`` at the plaza configuration (2000 training samples,
+   K=9, hidden 8, lr 0.01, w=50/tol=0.01, 1000 posterior draws, seed 0),
+   per-step times, cliques trained and launches; gate: max posterior-mean
+   translation error against the ``.fg``'s ground truth <= 15 m;
+7. 8 disjoint robots of 4 poses, each ranging a landmark that has a
+   tight prior, by ``ParallelNFiSAM`` and by ``NFiSAM`` (512 posterior
+   draws, 768 training samples, <= 700 iterations, K=7, lr 0.03); gates:
+   a bucket of 8 cliques trained in one batched loop, and the per-robot
+   range posteriors' mean and std of the two solvers within 0.5 m;
+8. on each of those solvers' final state, the fused pass against the
+   per-clique walk from the same key stream: max |diff| <= 1e-6 of the
+   samples' scale, and both passes' times;
+
+Each solve's kernel launches are counted from 0 just before it and read
+just after.  The output ends with one ``{"kernels": [...]}`` JSON line,
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import subprocess
@@ -55,6 +73,30 @@ BENCH_ARGS = dict(posterior_sample_num=1000, local_sample_num=2000,
                   flow_iterations=2000, num_knots=9, learning_rate=0.025,
                   hidden_dim=8, average_window=25, loss_delta_tol=0.04,
                   elimination_method="pose_first", mode_repair=False)
+# plaza1 (778 poses, 4 landmarks, the three case1 factor types) at the
+# configuration of the JAX package's plaza runs
+# (scripts/plaza_family_run.py: 5 poses a step, default w=50/tol=0.01
+# plateau stop, seed 0), cut to its first PLAZA_STEPS incremental steps
+PLAZA1_FG = os.path.join(HERE, "data", "plaza1_factor_graph.fg")
+PLAZA_ARGS = dict(posterior_sample_num=1000, local_sample_num=2000,
+                  flow_iterations=2000, num_knots=9, learning_rate=0.01,
+                  hidden_dim=8, elimination_method="pose_first", seed=0,
+                  mode_repair=False)
+PLAZA_STEPS = 10
+# the absolute floor of the plaza runs' gate on the max posterior-mean
+# translation error (scripts/plaza_family_run.py)
+PLAZA_GATE_M = 15.0
+# the robots graph: R disjoint robots of T poses (__graft_entry__.py), at
+# that entry's solver settings with K=7 (the kernel has K in 7/9/12)
+ROBOTS, ROBOT_STEPS = 8, 4
+ROBOT_ARGS = dict(posterior_sample_num=512, local_sample_num=768,
+                  flow_iterations=700, num_knots=7, hidden_dim=8,
+                  learning_rate=0.03, elimination_method="pose_first",
+                  seed=0, mode_repair=False)
+# gates: the two solvers' per-robot range posteriors (mean and std, m),
+# and the fused pass against the per-clique walk (relative to the scale)
+ROBOT_GATE_M = 0.5
+FUSED_TOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -62,27 +104,31 @@ def log(msg: str) -> None:
 
 
 # --------------------------------------------------------------------------
-# the solve and its gates (device-agnostic, so the tests can drive them)
+# the solves and their gates (device-agnostic, so the tests can drive them)
 # --------------------------------------------------------------------------
-def solve_case1(seed: int, device, **overrides):
-    """One incremental case1 solve.  Returns (total_s, per-step timings
-    {"s", "surgery_s", "fit_s", "posterior_s", "iters"}, per-step host
-    samples {name: (n, dim)}, solver).  On a card every phase ends in a
-    synchronize, so its time is the device's too."""
-    from nfisam_tpu_torch.io import (graph_file_parser,
-                                     group_nodes_factors_incrementally)
-    from nfisam_tpu_torch.solver import NFiSAM, NFiSAMArgs
+def host_samples(samples) -> dict:
+    """Posterior samples as host arrays by variable name (the fused pass's
+    buffer in one copy)."""
+    if hasattr(samples, "materialize"):
+        samples = samples.materialize()
+    return {str(v.name): x.cpu().numpy() if torch.is_tensor(x) else x
+            for v, x in samples.items()}
 
-    nodes, _, factors = graph_file_parser(CASE1_FG)
-    batches = group_nodes_factors_incrementally(nodes, factors,
-                                                incremental_step=1)
-    args = NFiSAMArgs(**{**BENCH_ARGS, **overrides, "seed": seed})
-    solver = NFiSAM(args, device=device)
+
+def run_incremental(solver, batches, device):
+    """Drive an incremental solve through the solver's entry points.
+    Returns (per-step timings {"s", "surgery_s", "fit_s", "posterior_s",
+    "iters", "trained", "launches"}, per-step host samples {name: (n,
+    dim)}).  On a card every phase ends in a synchronize, so its time is
+    the device's too; ``launches`` counts the AR-inverse kernel's."""
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+
     sync = torch.cuda.synchronize if torch.device(device).type == "cuda" \
         else (lambda: None)
     steps, per_step = [], []
     for ns, fs in batches:
         sync()
+        launches = ar_inverse_kernel.launches
         t0 = time.perf_counter()
         for n in ns:
             solver.add_node(n)
@@ -99,10 +145,153 @@ def solve_case1(seed: int, device, **overrides):
         steps.append({"s": t3 - t0, "surgery_s": t1 - t0, "fit_s": t2 - t1,
                       "posterior_s": t3 - t2,
                       "iters": [int(t) for _, t in
-                                solver._temp_training_loss.values()]})
-        per_step.append({str(v.name): x.detach().cpu().numpy()
-                         for v, x in samples.items()})
+                                solver._temp_training_loss.values()],
+                      "trained": len(solver._temp_training_loss),
+                      "launches": ar_inverse_kernel.launches - launches})
+        per_step.append(host_samples(samples))
+    return steps, per_step
+
+
+def solve_case1(seed: int, device, parallel: bool = False, **overrides):
+    """One incremental case1 solve, by ``NFiSAM`` or, with ``parallel``,
+    by ``ParallelNFiSAM`` (the JAX package's bench.py solver).  Returns
+    (total_s, per-step timings, per-step host samples, solver)."""
+    from nfisam_tpu_torch.io import (graph_file_parser,
+                                     group_nodes_factors_incrementally)
+    from nfisam_tpu_torch.parallel import ParallelNFiSAM
+    from nfisam_tpu_torch.solver import NFiSAM, NFiSAMArgs
+
+    nodes, _, factors = graph_file_parser(CASE1_FG)
+    batches = group_nodes_factors_incrementally(nodes, factors,
+                                                incremental_step=1)
+    args = NFiSAMArgs(**{**BENCH_ARGS, **overrides, "seed": seed})
+    solver = (ParallelNFiSAM if parallel else NFiSAM)(args, device=device)
+    steps, per_step = run_incremental(solver, batches, device)
     return float(sum(s["s"] for s in steps)), steps, per_step, solver
+
+
+def solve_plaza(device, steps: int = PLAZA_STEPS, **overrides):
+    """The first ``steps`` incremental steps of plaza1 (5 poses a step)
+    by ``ParallelNFiSAM`` at the plaza configuration.  Returns (per-step
+    timings, last step's host samples, ground truth by name, solver)."""
+    from nfisam_tpu_torch.io import (graph_file_parser,
+                                     group_nodes_factors_incrementally)
+    from nfisam_tpu_torch.parallel import ParallelNFiSAM
+    from nfisam_tpu_torch.solver import NFiSAMArgs
+
+    nodes, truth, factors = graph_file_parser(PLAZA1_FG)
+    batches = group_nodes_factors_incrementally(
+        nodes, factors, incremental_step=5)[:steps]
+    solver = ParallelNFiSAM(NFiSAMArgs(**{**PLAZA_ARGS, **overrides}),
+                            device=device)
+    timings, per_step = run_incremental(solver, batches, device)
+    return (timings, per_step[-1],
+            {str(v.name): np.asarray(t) for v, t in truth.items()}, solver)
+
+
+def robots_graph(core, factors, R: int = ROBOTS, T: int = ROBOT_STEPS):
+    """R disjoint robot-and-landmark subproblems (the JAX package's
+    multi-chip dry run, ``__graft_entry__.py``): robot r drives T poses
+    5 m apart from (0, 10r), ranges its landmark at (25, 10r) from its
+    first and last pose (sigma 0.4 m), and the landmark has a tight prior
+    (covariance 0.25 I).  ``core`` and ``factors`` are the package's
+    modules of those names.  Returns (variables, factors)."""
+    cov3 = np.diag([0.01, 0.01, 0.001])
+    vars_, fs = [], []
+    for r in range(R):
+        rid = chr(ord("A") + r)
+        xs = [core.SE2Variable(f"{rid}{t}") for t in range(T)]
+        lm = core.R2Variable(f"L{r + 1}", core.VariableType.Landmark)
+        vars_ += xs
+        start = np.array([0.0, 10.0 * r, 0.0])
+        lm_true = np.array([25.0, 10.0 * r])
+        fs.append(factors.UnarySE2ApproximateGaussianPriorFactor(
+            xs[0], start, cov3))
+        for a, b in zip(xs, xs[1:]):
+            fs.append(factors.SE2RelativeGaussianLikelihoodFactor(
+                a, b, np.array([5.0, 0.0, 0.0]), cov3))
+        for t in (0, T - 1):
+            pos = start[:2] + np.array([5.0 * t, 0.0])
+            fs.append(factors.SE2R2RangeGaussianLikelihoodFactor(
+                xs[t], lm, float(np.linalg.norm(lm_true - pos)), 0.4))
+        fs.append(factors.UnaryR2GaussianPriorFactor(
+            lm, lm_true, covariance=np.eye(2) * 0.25))
+        vars_.append(lm)
+    return vars_, fs
+
+
+def solve_robots(device, parallel: bool, R: int = ROBOTS,
+                 T: int = ROBOT_STEPS, **overrides):
+    """The robots graph by ``ParallelNFiSAM`` or by ``NFiSAM``.  Returns
+    (per-step timings, last step's host samples, solver)."""
+    import nfisam_tpu_torch.core as core
+    import nfisam_tpu_torch.factors as factors
+    from nfisam_tpu_torch.io import group_nodes_factors_incrementally
+    from nfisam_tpu_torch.parallel import ParallelNFiSAM
+    from nfisam_tpu_torch.solver import NFiSAM, NFiSAMArgs
+
+    vars_, fs = robots_graph(core, factors, R, T)
+    batches = group_nodes_factors_incrementally(vars_, fs,
+                                                incremental_step=R * T + 1)
+    args = NFiSAMArgs(**{**ROBOT_ARGS, **overrides})
+    solver = (ParallelNFiSAM if parallel else NFiSAM)(args, device=device)
+    timings, per_step = run_incremental(solver, batches, device)
+    return timings, per_step[-1], solver
+
+
+def range_moments(samples, R: int = ROBOTS, T: int = ROBOT_STEPS):
+    """Per robot, the mean and std (m) of the posterior range from its
+    last pose to its landmark: (R, 2)."""
+    out = []
+    for r in range(R):
+        d = np.linalg.norm(samples[f"{chr(ord('A') + r)}{T - 1}"][:, :2] -
+                           samples[f"L{r + 1}"][:, :2], axis=1)
+        out.append((d.mean(), d.std()))
+    return np.array(out)
+
+
+def fused_vs_per_clique(solver):
+    """The fused pass and the per-clique walk on the solver's final state,
+    each pair drawn from the same key stream (rewound between the two),
+    in turns: fused, walk, then walk, fused.  Returns (max |fused - walk|
+    / max(1, max |sample|) over both pairs, fused seconds, per-clique
+    seconds; each time the mean of two and ending in a synchronize)."""
+    from nfisam_tpu_torch.solver import LazySamples
+
+    sync = torch.cuda.synchronize if solver.device.type == "cuda" \
+        else (lambda: None)
+    passes = {"fused": solver.sample_posterior,
+              "walk": solver.sample_posterior_per_clique}
+    seconds = {"fused": 0.0, "walk": 0.0}
+    worst = 0.0
+    for order in (("fused", "walk"), ("walk", "fused")):
+        keys = copy.deepcopy(solver._keys)
+        out = {}
+        for which in order:
+            solver._keys = copy.deepcopy(keys)
+            sync()
+            t0 = time.perf_counter()
+            out[which] = passes[which]()
+            sync()
+            seconds[which] += (time.perf_counter() - t0) / 2
+        fused, walk = out["fused"], out["walk"]
+        if not isinstance(fused, LazySamples) or set(fused) != set(walk):
+            raise SystemExit("the fused posterior pass did not run on "
+                             "every variable")
+        diff = max(float((fused[v] - walk[v]).abs().max()) for v in walk)
+        scale = max(1.0, max(float(walk[v].abs().max()) for v in walk))
+        worst = max(worst, diff / scale)
+    return worst, seconds["fused"], seconds["walk"]
+
+
+def translation_errors(samples, truth):
+    """(max, RMSE) of the posterior-mean translation error (m) over the
+    variables with a ground truth; values are (n, dim) samples by name."""
+    errs = np.array([np.linalg.norm(np.asarray(x)[:, :2].mean(0) -
+                                    np.asarray(truth[name])[:2])
+                     for name, x in samples.items()
+                     if name in truth])
+    return float(errs.max()), float(np.sqrt(np.mean(errs ** 2)))
 
 
 def _ref_block(mat, order, name2dim, names):
@@ -390,14 +579,15 @@ def build_report() -> None:
 
 
 def profile_solve(device) -> None:
-    """One more seed-1 solve under ``torch.profiler``: the device's busy
-    share of the solve's wall time and the kernels that fill it."""
+    """One more seed-1 ``ParallelNFiSAM`` solve under ``torch.profiler``:
+    the device's busy share of the solve's wall time and the kernels that
+    fill it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall, _, _, _ = solve_case1(SEEDS[0], device)
+        wall, _, _, _ = solve_case1(SEEDS[0], device, parallel=True)
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
 
@@ -414,6 +604,118 @@ def profile_solve(device) -> None:
         f"{sum(e.count for e in rows)} kernel launches")
     for e in sorted(rows, key=dev_us, reverse=True)[:12]:
         log(f"  {dev_us(e) / 1e3:9.2f} ms {e.count:7d}x  {e.key[:90]}")
+
+
+def check_finite(samples: dict, where: str) -> None:
+    for name, x in samples.items():
+        if not np.isfinite(x).all():
+            raise SystemExit(f"non-finite posterior samples of {name} "
+                             f"({where})")
+
+
+def log_steps(steps) -> None:
+    for i, st in enumerate(steps):
+        log(f"  step {i}: {st['s']:.3f} s (surgery {st['surgery_s']:.4f}, "
+            f"fit {st['fit_s']:.3f}, posterior {st['posterior_s']:.4f}); "
+            f"cliques trained {st['trained']}, ar_inverse launches "
+            f"{st['launches']}; Adam iterations {st['iters']}")
+
+
+def case1_phase(device, parallel: bool, name2dim):
+    """case1 for every seed by ``NFiSAM`` or ``ParallelNFiSAM``, each
+    solve's kernel launches counted, then the median MMD gate.  Returns
+    (launches per seed, the last seed's solver)."""
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+
+    label = "ParallelNFiSAM" if parallel else "NFiSAM"
+    per_step_by_seed, launches, solver = [], [], None
+    for seed in SEEDS:
+        ar_inverse_kernel.launches = 0
+        total, steps, per_step, solver = solve_case1(seed, device, parallel)
+        launches.append(ar_inverse_kernel.launches)
+        log(f"case1 {label} seed {seed}: total {total:.3f} s, posterior "
+            f"{sum(st['posterior_s'] for st in steps)} s, ar_inverse "
+            f"launches {launches[-1]}")
+        log_steps(steps)
+        if launches[-1] == 0:
+            raise SystemExit(f"the case1 {label} solve never launched the "
+                             f"ar_inverse kernel")
+        for step, samples in enumerate(per_step):
+            check_finite(samples, f"case1 {label} step {step} seed {seed}")
+        per_step_by_seed.append(per_step)
+
+    mmd_joint, ref_mmd, results = median_gate(per_step_by_seed, name2dim)
+    for seed, (ours, _, per) in zip(SEEDS, results):
+        log(f"case1 {label} seed {seed} joint MMD {ours:.4f}, per step "
+            f"{[round(x, 4) for x in per]}")
+    log(f"case1 {label} accuracy gate: median joint MMD {mmd_joint:.4f} vs "
+        f"{MMD_GATE_FACTOR}x reference run1 {ref_mmd:.4f}")
+    if not mmd_joint <= MMD_GATE_FACTOR * ref_mmd:
+        raise SystemExit(f"case1 {label} accuracy gate failed")
+    return launches, solver
+
+
+def plaza_phase(device):
+    """The plaza1 prefix, its kernel launches counted, then the
+    translation-error gate.  Returns the solver."""
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+
+    ar_inverse_kernel.launches = 0
+    steps, samples, truth, solver = solve_plaza(device)
+    launches = ar_inverse_kernel.launches
+    worst, rmse = translation_errors(samples, truth)
+    log(f"plaza1 first {PLAZA_STEPS} steps, ParallelNFiSAM: total "
+        f"{sum(st['s'] for st in steps):.3f} s, ar_inverse launches "
+        f"{launches}; bucket log {solver.bucket_log}")
+    log_steps(steps)
+    log(f"plaza1 gate: max posterior-mean translation error {worst:.3f} m "
+        f"(<= {PLAZA_GATE_M}), RMSE {rmse:.3f} m over {len(samples)} "
+        f"variables")
+    check_finite(samples, "plaza1")
+    if launches == 0:
+        raise SystemExit("the plaza1 solve never launched the ar_inverse "
+                         "kernel")
+    if not worst <= PLAZA_GATE_M:
+        raise SystemExit("plaza1 translation-error gate failed")
+    return solver
+
+
+def robots_phase(device):
+    """The robots graph by ``ParallelNFiSAM`` and by ``NFiSAM``, kernel
+    launches counted per solver; gates: the batched trainer ran a bucket
+    of ``ROBOTS`` cliques, and the two solvers' per-robot range posteriors
+    agree.  Returns (parallel solver, sequential solver)."""
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+
+    moments, solvers = [], []
+    for parallel in (True, False):
+        label = "ParallelNFiSAM" if parallel else "NFiSAM"
+        ar_inverse_kernel.launches = 0
+        steps, samples, solver = solve_robots(device, parallel)
+        launches = ar_inverse_kernel.launches
+        log(f"robots R={ROBOTS} T={ROBOT_STEPS} {label}: total "
+            f"{sum(st['s'] for st in steps):.3f} s, ar_inverse launches "
+            f"{launches}")
+        log_steps(steps)
+        check_finite(samples, f"robots {label}")
+        if launches == 0:
+            raise SystemExit(f"the robots {label} solve never launched the "
+                             f"ar_inverse kernel")
+        moments.append(range_moments(samples))
+        solvers.append(solver)
+    buckets = solvers[0].bucket_log
+    dmu, dsd = np.abs(moments[0] - moments[1]).max(axis=0)
+    log(f"robots gate: bucket log {buckets}; range posterior mean "
+        f"{np.round(moments[0][:, 0], 3).tolist()} vs "
+        f"{np.round(moments[1][:, 0], 3).tolist()}, worst |dmean| {dmu:.3f} "
+        f"m, worst |dstd| {dsd:.3f} m (< {ROBOT_GATE_M})")
+    if max(b for _, _, b in buckets) < ROBOTS:
+        raise SystemExit(f"no bucket reached {ROBOTS} cliques: the batched "
+                         f"trainer did not run at full width")
+    if not (dmu < ROBOT_GATE_M and dsd < ROBOT_GATE_M):
+        raise SystemExit("robots gate failed: the two solvers' range "
+                         "posteriors differ")
+    return solvers
 
 
 def main() -> int:
@@ -436,7 +738,6 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
 
-    from nfisam_tpu_torch.flows import ar_inverse_kernel
     from nfisam_tpu_torch.io import graph_file_parser
     from nfisam_tpu_torch.utils.cuda_build import build_all_kernels
 
@@ -448,45 +749,33 @@ def main() -> int:
 
     nodes, _, _ = graph_file_parser(CASE1_FG)
     name2dim = {str(v.name): v.dim for v in nodes}
-    per_step_by_seed, launches, solver = [], [], None
-    for seed in SEEDS:
-        ar_inverse_kernel.launches = 0
-        total, steps, per_step, solver = solve_case1(seed, device)
-        launches.append(ar_inverse_kernel.launches)
-        log(f"case1 seed {seed}: total {total:.3f} s, posterior "
-            f"{sum(st['posterior_s'] for st in steps)} s, ar_inverse "
-            f"launches {launches[-1]}")
-        for i, st in enumerate(steps):
-            log(f"  step {i}: {st['s']:.3f} s (surgery "
-                f"{st['surgery_s']:.4f}, fit {st['fit_s']:.3f}, posterior "
-                f"{st['posterior_s']:.4f}); Adam iterations {st['iters']}")
-        if launches[-1] == 0:
-            raise SystemExit("the case1 solve never launched the "
-                             "ar_inverse kernel")
-        for step, samples in enumerate(per_step):
-            for name, x in samples.items():
-                if not np.isfinite(x).all():
-                    raise SystemExit(f"non-finite posterior samples of "
-                                     f"{name} at step {step}, seed {seed}")
-        per_step_by_seed.append(per_step)
-    entry["launches"] = launches[0]
-
-    mmd_joint, ref_mmd, results = median_gate(per_step_by_seed, name2dim)
-    for seed, (ours, _, per) in zip(SEEDS, results):
-        log(f"seed {seed} joint MMD {ours:.4f}, per step "
-            f"{[round(x, 4) for x in per]}")
-    log(f"accuracy gate: median joint MMD {mmd_joint:.4f} vs "
-        f"{MMD_GATE_FACTOR}x reference run1 {ref_mmd:.4f}")
-    if not mmd_joint <= MMD_GATE_FACTOR * ref_mmd:
-        raise SystemExit("accuracy gate failed")
+    _, seq_solver = case1_phase(device, False, name2dim)
 
     from nfisam_tpu_torch.flows import stack_inverse_masked_cuda
-    res_k, res_p, checked = roundtrip_residuals(solver,
+    res_k, res_p, checked = roundtrip_residuals(seq_solver,
                                                 stack_inverse_masked_cuda)
     log(f"roundtrip residual on {checked} trained cliques: kernel "
         f"{res_k:.3e}, plain {res_p:.3e}")
     if checked == 0 or not res_k <= max(4.0 * res_p, 1e-3):
         raise SystemExit("roundtrip residual gate failed")
+
+    launches, par_solver = case1_phase(device, True, name2dim)
+    entry["launches"] = launches[0]
+    plaza_solver = plaza_phase(device)
+    robot_solvers = robots_phase(device)
+
+    for label, solver in (("case1 NFiSAM", seq_solver),
+                          ("case1 ParallelNFiSAM", par_solver),
+                          ("plaza1 ParallelNFiSAM", plaza_solver),
+                          ("robots ParallelNFiSAM", robot_solvers[0]),
+                          ("robots NFiSAM", robot_solvers[1])):
+        rel, fused_s, walk_s = fused_vs_per_clique(solver)
+        log(f"{label}: fused pass vs per-clique walk on the final state, "
+            f"max |diff| {rel:.3e} of the samples' scale; posterior_s "
+            f"fused {fused_s} s, per-clique {walk_s} s (in turns)")
+        if not rel <= FUSED_TOL:
+            raise SystemExit(f"{label}: the fused posterior pass disagrees "
+                             f"with the per-clique walk ({rel:.3e})")
     if opts.profile:
         profile_solve(device)
 

@@ -4,7 +4,8 @@ Counterpart of ``nfisam_tpu/factors/factors.py`` for the three factor
 types of the case1 problem: the SE(2) prior
 (``UnarySE2ApproximateGaussianPriorFactor``), SE(2) odometry
 (``SE2RelativeGaussianLikelihoodFactor``) and SE(2)-R^2 range
-(``SE2R2RangeGaussianLikelihoodFactor``).  Numeric methods take ``(n, d)``
+(``SE2R2RangeGaussianLikelihoodFactor``), and the R^2 landmark prior
+(``UnaryR2GaussianPriorFactor``).  Numeric methods take ``(n, d)``
 tensors and compute in float32 on the tensors' device; sampling takes a
 raw host key and draws from a ``torch.Generator`` seeded with it on that
 device.  The ``.fg`` grammar is the JAX package's, dispatched through a
@@ -266,6 +267,78 @@ class UnarySE2ApproximateGaussianPriorFactor(_SE2GaussianNoise, PriorFactor,
         else:
             raise ValueError("covariance or information expected")
         return cls(n2v[tok[1]], pose, cov)
+
+
+# ==========================================================================
+# R^2 Gaussian prior
+# ==========================================================================
+@register_factor
+class UnaryR2GaussianPriorFactor(PriorFactor, UnaryFactor):
+    """Gaussian prior on an R^2 variable (e.g. a landmark's position)."""
+
+    def __init__(self, var: Variable, mu, covariance=None, precision=None):
+        self._vars = [var]
+        self.mu = np.asarray(mu, dtype=np.float64).reshape(2)
+        if covariance is not None:
+            self.covariance = np.asarray(covariance, dtype=np.float64)
+            self.precision = np.linalg.inv(self.covariance)
+        elif precision is not None:
+            self.precision = np.asarray(precision, dtype=np.float64)
+            self.covariance = np.linalg.inv(self.precision)
+        else:
+            raise ValueError("need a covariance or a precision")
+        self.cov_sqrt = spd_sqrt(self.covariance)
+        self.prec_chol = np.linalg.cholesky(self.precision)
+        self.log_norm = -0.5 * (2 * LOG_TWO_PI +
+                                np.log(np.linalg.det(self.covariance)))
+
+    @property
+    def vars(self):
+        return self._vars
+
+    @property
+    def observation(self):
+        return self.mu
+
+    def _from_normal(self, z: torch.Tensor) -> torch.Tensor:
+        return z @ self._const("cov_sqrt", z.device).T + \
+            self._const("mu", z.device)
+
+    def sample(self, key, num_samples, device):
+        gen = torch_generator(key, device)
+        return self._from_normal(torch.randn((num_samples, 2), generator=gen,
+                                             device=device))
+
+    def unif_to_sample(self, u):
+        squeeze = u.ndim == 1
+        out = self._from_normal(norm_ppf(torch.atleast_2d(u)))
+        return out[0] if squeeze else out
+
+    def log_pdf(self, x):
+        return gaussian_log_pdf(x - self._const("mu", x.device),
+                                self._const("prec_chol", x.device),
+                                float(self.log_norm))
+
+    def __str__(self):
+        c = self.covariance
+        vals = [str(self.vars[0].name), str(self.mu[0]), str(self.mu[1]),
+                "covariance", str(c[0, 0]), str(c[0, 1]), str(c[1, 0]),
+                str(c[1, 1])]
+        return "Factor " + type(self).__name__ + " " + " ".join(vals)
+
+    @classmethod
+    def construct_from_text(cls, line, variables):
+        tok = line.strip().split()
+        if tok[0] != cls.__name__:
+            raise ValueError(f"not a {cls.__name__} line: {line!r}")
+        n2v = vars_by_name(variables)
+        mu = np.array([float(tok[2]), float(tok[3])])
+        mat = np.array([float(t) for t in tok[5:9]]).reshape(2, 2)
+        if tok[4] == "covariance":
+            return cls(n2v[tok[1]], mu, covariance=mat)
+        if tok[4] == "precision":
+            return cls(n2v[tok[1]], mu, precision=mat)
+        raise ValueError("covariance or precision expected")
 
 
 # ==========================================================================

@@ -2,3 +2,4 @@ from .nfisam import (FlowModelAdapter, FlowsPriorFactor, NFiSAM, NFiSAMArgs,
                      effective_hidden_dim)
 from .solver import (CliqueSeparatorFactor, ConditionalSampler,
                      FactorGraphSolver, SolverArgs)
+from .posterior_pass import LazySamples, fused_sample_posterior

@@ -1,0 +1,160 @@
+"""Fused root-to-leaf posterior pass over one sample buffer.
+
+Counterpart of ``nfisam_tpu/solver/posterior_pass.py``.  The per-clique
+walk (``FactorGraphSolver.sample_posterior_per_clique``) builds each
+clique's [observations | separator] block on the host side of the solver
+(a host-to-device copy of the observations, a concatenation of separator
+views, a mask made from numpy), which synchronises the stream once per
+clique.  Here the host walks the tree once, up front:
+
+- the cliques in topological order (parents first): the same DFS with
+  ``str``-sorted children as the per-clique walk, so both consume the
+  solver's key stream identically;
+- one column range per variable in a single (n, D+1) float32 device
+  buffer; column D stays zero and is where every prefix column that is
+  neither an observation nor a separator reads from;
+- per clique, its gather map, observation values and inversion mask,
+  packed into arrays that reach the device in one non-blocking copy each.
+
+Then, for each clique in that order: the next key of the solver's
+stream, the base draws z from it (as ``CliqueFlowModel.conditional_sample``
+draws them), the prefix gathered from the buffer by index,
+``conditional_draw_core`` (the masked AR inverse: the CUDA kernel on a
+card), and the frontal columns written back.  Nothing in the pass reads a
+device value on the host.  On the same solver state and key stream it
+gives the per-clique walk's samples bit for bit.
+
+The JAX pass also groups runs of one flow signature into one scan,
+pads run lengths and the buffer width to powers of two, caches stacked
+parameters block by block, and prewarms the next padded sizes.  All of
+that bounds compilation or host dispatch of compiled scans; this pass
+compiles nothing and launches one kernel a clique, so it has none of it.
+A run-level launch (a CUDA graph of the pass, or one kernel walking a
+run) is the next lever, to be measured first.
+"""
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..flows.model import (CliqueFlowModel, _select_inverse_fn,
+                           conditional_draw_core)
+from ..graph.bayes_tree import CliqueNode
+from ..utils.keys import torch_generator
+
+
+def topological_cliques(root: CliqueNode) -> List[CliqueNode]:
+    """Cliques parents first: a DFS whose children are ``str``-sorted, so
+    the order (and the key each clique takes) is hash-seed free."""
+    order, stack = [], [root]
+    while stack:
+        clique = stack.pop()
+        order.append(clique)
+        stack.extend(sorted(clique.children, key=str))
+    return order
+
+
+def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``; to a card through pinned memory, so the
+    copy does not wait for the stream."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+@torch.no_grad()
+def fused_sample_posterior(solver, num_samples: int
+                           ) -> Optional["LazySamples"]:
+    """Run the fused pass over ``solver``'s physical tree.  Returns the
+    samples, or None if some clique's model is not a ``CliqueFlowModel``
+    (the caller then walks clique by clique)."""
+    specs = []
+    col_of: Dict = {}        # variable -> first buffer column
+    D = 0
+    for clique in topological_cliques(solver._physical_bayes_tree.root):
+        model = getattr(solver._clique_density_model.get(clique), "model",
+                        None)
+        if not isinstance(model, CliqueFlowModel):
+            return None
+        frontal_list = sorted(
+            clique.frontal, key=lambda v: solver._reverse_ordering_map[v])
+        separator_list = sorted(
+            clique.separator, key=lambda v: solver._reverse_ordering_map[v])
+        first = D
+        for v in frontal_list:
+            col_of[v] = D
+            D += v.dim
+        obs = np.asarray(solver._clique_true_obs[clique],
+                         dtype=np.float32).reshape(-1)
+        specs.append((model, obs, separator_list, first, D - first))
+
+    zero_col = D
+    L, width = len(specs), max(s[0].dim for s in specs)
+    src = np.full((L, width), zero_col, dtype=np.int64)
+    omask = np.zeros((L, width), dtype=bool)
+    ovals = np.zeros((L, width), dtype=np.float32)
+    imask = np.ones((L, width), dtype=bool)
+    lead = []                # prefix width: observations + separator
+    for i, (_, obs, separator_list, _, _) in enumerate(specs):
+        c = len(obs)
+        omask[i, :c] = True
+        ovals[i, :c] = obs
+        for v in separator_list:
+            src[i, c:c + v.dim] = np.arange(col_of[v], col_of[v] + v.dim)
+            c += v.dim
+        imask[i, :c] = False
+        lead.append(c)
+
+    device = solver.device
+    src, omask, ovals, imask = (_to_device(a, device)
+                                for a in (src, omask, ovals, imask))
+    inverse_fn = _select_inverse_fn(device)
+    buffer = torch.zeros((num_samples, D + 1), dtype=torch.float32,
+                         device=device)
+    for i, (model, _, _, first, frontal_dim) in enumerate(specs):
+        d = model.dim
+        gen = torch_generator(solver._next_key(), device)
+        z = model.base.sample(gen, num_samples, device)
+        prefix = torch.where(omask[i, :d], ovals[i, :d],
+                             buffer.index_select(1, src[i, :d]))
+        x = conditional_draw_core(model.flow_params, model.mean, model.std,
+                                  model.circ_mask, z, prefix, imask[i, :d],
+                                  model.cfg, inverse_fn)
+        buffer[:, first:first + frontal_dim] = \
+            x[:, lead[i]:lead[i] + frontal_dim]
+    return LazySamples(buffer, col_of)
+
+
+class LazySamples(Mapping):
+    """Posterior samples as column views of the pass's buffer: variable ->
+    (n, dim) tensor on the solver's device.  A view is cut when a consumer
+    asks for it; ``materialize`` copies the buffer to the host once."""
+
+    def __init__(self, buffer: torch.Tensor, col_of: Dict) -> None:
+        self._buffer = buffer
+        self._col_of = col_of
+        self._cache: Dict = {}
+
+    def __getitem__(self, v) -> torch.Tensor:
+        out = self._cache.get(v)
+        if out is None:
+            col = self._col_of[v]
+            out = self._buffer[:, col:col + v.dim]
+            self._cache[v] = out
+        return out
+
+    def __iter__(self):
+        return iter(self._col_of)
+
+    def __len__(self) -> int:
+        return len(self._col_of)
+
+    def materialize(self) -> Dict:
+        """Every variable as a host numpy array, from one device copy."""
+        buf = self._buffer.cpu().numpy()
+        return {v: buf[:, col:col + v.dim]
+                for v, col in self._col_of.items()}

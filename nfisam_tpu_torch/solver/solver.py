@@ -3,7 +3,8 @@
 Counterpart of ``nfisam_tpu/solver/solver.py``: physical vs working graph
 split, elimination orderings, incremental Bayes-tree surgery with
 density-model recycling, leaves-to-root clique fitting, and the
-root-to-leaf per-clique posterior walk.  All numeric work runs on the
+root-to-leaf posterior pass: fused over one buffer
+(``posterior_pass.py``), or clique by clique.  All numeric work runs on the
 solver's device (``cuda`` unless the caller names another); the solver
 only sequences it.  Mode repair (the JAX package's evidence-aware
 recycling) is not ported yet: ``mode_repair`` defaults to off here and
@@ -11,6 +12,7 @@ raises when switched on.
 """
 from __future__ import annotations
 
+from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -24,6 +26,7 @@ from ..graph.factor_graph import FactorGraph, pose_first_ordering
 from ..samplers.simulation import SimulationBasedSampler
 from ..utils.device import resolve_device
 from ..utils.keys import KeyStream
+from .posterior_pass import fused_sample_posterior, topological_cliques
 
 
 @dataclass
@@ -221,20 +224,10 @@ class FactorGraphSolver:
             if old_clique in self._clique_variable_pattern:
                 self._clique_variable_pattern[new_clique] = \
                     self._clique_variable_pattern[old_clique]
-            self._clique_density_model[new_clique] = \
-                self.root_clique_density_model_to_leaf(
-                    old_clique, new_clique)
-            new_sep_factor = None
-            if new_clique.separator:
-                sep_list = sorted(
-                    new_clique.separator,
-                    key=lambda v: self._reverse_ordering_map[v])
-                new_sep_factor = self.clique_density_to_separator_factor(
-                    sep_list, self._clique_density_model[new_clique],
-                    self._clique_true_obs[old_clique])
-                self._implicit_factors[new_clique] = new_sep_factor
-            self._working_graph = self._working_graph.without_clique(
-                clique=new_clique, new_factor=new_sep_factor)
+            model = self.root_clique_density_model_to_leaf(old_clique,
+                                                           new_clique)
+            self._clique_density_model[new_clique] = model
+            self._finish_clique(new_clique, model)
         for old_clique in stale:
             self._clique_density_model.pop(old_clique, None)
             self._clique_true_obs.pop(old_clique, None)
@@ -297,16 +290,21 @@ class FactorGraphSolver:
                 var_ordering=sample_var_ordering)
             self._clique_true_obs[clique] = true_obs
             self._clique_density_model[clique] = model
-            new_sep_factor = None
-            if clique.separator:
-                sep_list = sorted(
-                    clique.separator,
-                    key=lambda v: self._reverse_ordering_map[v])
-                new_sep_factor = self.clique_density_to_separator_factor(
-                    sep_list, model, true_obs)
-                self._implicit_factors[clique] = new_sep_factor
-            self._working_graph = self._working_graph.without_clique(
-                clique=clique, new_factor=new_sep_factor)
+            self._finish_clique(clique, model)
+
+    def _finish_clique(self, clique: CliqueNode, model) -> None:
+        """Push the clique's separator marginal up as a prior factor and
+        eliminate the clique from the working graph."""
+        new_sep_factor = None
+        if clique.separator:
+            sep_list = sorted(
+                clique.separator,
+                key=lambda v: self._reverse_ordering_map[v])
+            new_sep_factor = self.clique_density_to_separator_factor(
+                sep_list, model, self._clique_true_obs[clique])
+            self._implicit_factors[clique] = new_sep_factor
+        self._working_graph = self._working_graph.without_clique(
+            clique=clique, new_factor=new_sep_factor)
 
     def clique_training_sampler(self, clique: CliqueNode, num_samples: int):
         """Training samples for one clique by ancestral simulation."""
@@ -316,16 +314,25 @@ class FactorGraphSolver:
                                          vars=pattern, device=self.device)
         return sampler.sample(self._next_key(), num_samples)
 
-    def sample_posterior(self) -> Dict[Variable, torch.Tensor]:
+    def sample_posterior(self) -> Mapping:
+        """Root-to-leaf conditional sampling of the physical tree: the
+        fused pass (``posterior_pass.py``) when every clique's model is a
+        flow, else the per-clique walk.  Returns Variable -> (n, dim)
+        tensors on the solver's device; the fused pass's are read-only
+        views of one buffer."""
+        fused = fused_sample_posterior(self, self._args.posterior_sample_num)
+        if fused is not None:
+            return fused
+        return self.sample_posterior_per_clique()
+
+    def sample_posterior_per_clique(self) -> Dict[Variable, torch.Tensor]:
         """Root-to-leaf conditional sampling, one clique at a time: each
         clique draws its frontals given [observations | separator samples]
-        already drawn above it.  Returns Variable -> (n, dim) tensors on
-        the solver's device."""
+        already drawn above it.  Takes one key a clique in the fused pass's
+        order, so on the same key stream both give the same samples."""
         num_samples = self._args.posterior_sample_num
-        stack = [self._physical_bayes_tree.root]
         samples: Dict[Variable, torch.Tensor] = {}
-        while stack:
-            clique = stack.pop()
+        for clique in topological_cliques(self._physical_bayes_tree.root):
             frontal_list = sorted(
                 clique.frontal, key=lambda v: self._reverse_ordering_map[v])
             separator_list = sorted(
@@ -353,6 +360,4 @@ class FactorGraphSolver:
             for v in frontal_list:
                 samples[v] = frontal[:, cur:cur + v.dim]
                 cur += v.dim
-            # canonical child order: key consumption is hash-seed free
-            stack.extend(sorted(clique.children, key=str))
         return samples

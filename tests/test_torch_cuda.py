@@ -1,5 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a
-card.  This file imports neither JAX nor the JAX package, so it also runs
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+paths around them (the fused posterior pass against the per-clique walk,
+the batched trainer), on a card.  This file imports neither JAX nor the
+JAX package, so it also runs
 where JAX is not installed.  Every test carries the ``cuda`` marker and
 skips without a card.  On a card: ``python -m pytest --noconftest -p
 no:cacheprovider -m cuda tests/test_torch_cuda.py`` (the tests'
@@ -116,3 +118,47 @@ def test_cuda_model_draws_through_the_kernel(cuda):
     x = model.conditional_sample(np.array([1, 2], np.uint32), 500)
     assert x.shape == (500, 16) and bool(torch.isfinite(x).all())
     assert ar_inverse_kernel.launches == before + 1
+
+
+def test_cuda_fused_pass_equals_per_clique_walk(cuda):
+    """On a small solved case (two robots of three poses), the fused
+    posterior pass and the per-clique walk, from the same key stream,
+    agree within 1e-6 of the samples' scale, and both launch the
+    kernel."""
+    small = dict(local_sample_num=300, flow_iterations=40,
+                 posterior_sample_num=500)
+    _, _, solver = chip_smoke.solve_robots(cuda, True, R=2, T=3, **small)
+    before = ar_inverse_kernel.launches
+    rel, _, _ = chip_smoke.fused_vs_per_clique(solver)
+    assert rel <= 1e-6
+    # two rounds of both passes, one launch a clique each
+    assert ar_inverse_kernel.launches - before == \
+        4 * len(solver.physical_bayes_tree.clique_nodes)
+
+
+def test_cuda_batched_trainer_follows_single_fits(cuda):
+    """``fit_flows_batched`` on the card: each member's first iterations
+    follow its own ``fit_flow_raw`` (rounding may differ on the card, so
+    1e-4 relative over 5 iterations), and every member trains."""
+    from nfisam_tpu_torch.flows import NSFConfig
+    from nfisam_tpu_torch.train import (TrainConfig, fit_flow_raw,
+                                        fit_flows_batched)
+    d, B = 16, 4
+    cfg = NSFConfig(dim=d, num_knots=9, hidden_dim=8)
+    tc = TrainConfig(max_iters=120, learning_rate=0.025, average_window=20,
+                     loss_delta_tol=0.02)
+    rng = np.random.default_rng(0)
+    raw = torch.as_tensor((rng.normal(size=(B, 500, d)) *
+                           rng.uniform(0.5, 30, (B, 1, d))).astype(
+                               np.float32), device=cuda)
+    keys = np.array([[5, b] for b in range(B)], np.uint32)
+    masks = np.zeros((B, d), bool)
+    params, loss, t, mean, std = fit_flows_batched(keys, raw, cfg, tc, masks)
+    assert params[0]["W3"].shape == (B, d, 27, 8)
+    assert loss.shape == (B, 120) and mean.shape == std.shape == (B, d)
+    for b in range(B):
+        _, loss1, _, _, _ = fit_flow_raw(keys[b], raw[b], cfg, tc, masks[b])
+        np.testing.assert_allclose(loss[b, :5].cpu().numpy(),
+                                   loss1[:5].cpu().numpy(), rtol=1e-4)
+        assert 40 < t[b] <= 120
+        assert float(loss[b, t[b] - 1]) < float(loss[b, 0])

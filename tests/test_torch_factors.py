@@ -137,3 +137,41 @@ def test_directional_samples_are_consistent(factors, name):
         if name.startswith("SE2R2Range"):
             rng_ = torch.linalg.vector_norm(x2 - t1[:, :2], dim=1)
             assert abs(float(rng_.mean()) - float(ours.obs[0])) < 0.5
+
+
+R2_PRIOR_LINE = ("UnaryR2GaussianPriorFactor L1 25.0 -10.0 covariance "
+                 "0.25 0.05 0.05 0.4")
+
+
+def _r2_priors():
+    """The R^2 landmark prior in both packages, from one ``.fg`` line."""
+    import nfisam_tpu.core as jcore
+    import nfisam_tpu.factors as jfactors
+    import nfisam_tpu_torch.core as tcore
+    import nfisam_tpu_torch.factors as tfactors
+    ours = tfactors.Factor.construct_from_text(
+        R2_PRIOR_LINE, [tcore.R2Variable("L1", tcore.VariableType.Landmark)])
+    theirs = jfactors.UnaryR2GaussianPriorFactor.construct_from_text(
+        R2_PRIOR_LINE, [jcore.R2Variable("L1", jcore.VariableType.Landmark)])
+    return ours, theirs
+
+
+def test_r2_prior_matches_jax():
+    """``log_pdf`` and ``unif_to_sample`` of the landmark prior that the
+    robots graph uses, element by element; its ``.fg`` text round-trips;
+    draws have its moments."""
+    ours, theirs = _r2_priors()
+    rng = np.random.default_rng(3)
+    x = (np.array([25.0, -10.0]) + rng.normal(size=(300, 2))).astype(
+        np.float32)
+    np.testing.assert_allclose(ours.log_pdf(torch.as_tensor(x)).numpy(),
+                               np.asarray(theirs.log_pdf(jnp.asarray(x))),
+                               **TOL)
+    u = _uniform(rng, 300, 2)
+    np.testing.assert_allclose(
+        ours.unif_to_sample(torch.as_tensor(u)).numpy(),
+        np.asarray(theirs.unif_to_sample(jnp.asarray(u))), **TOL)
+    assert str(ours) == "Factor " + R2_PRIOR_LINE
+    draws = ours.sample(np.array([1, 2], np.uint32), 20000, "cpu").numpy()
+    np.testing.assert_allclose(draws.mean(0), [25.0, -10.0], atol=0.02)
+    np.testing.assert_allclose(np.cov(draws.T), ours.covariance, atol=0.02)

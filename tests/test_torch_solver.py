@@ -196,7 +196,10 @@ def test_port_imports_no_jax_and_no_jax_package():
             "import nfisam_tpu_torch, nfisam_tpu_torch.solver, "
             "nfisam_tpu_torch.flows, nfisam_tpu_torch.io, "
             "nfisam_tpu_torch.eval, nfisam_tpu_torch.train, "
-            "nfisam_tpu_torch.samplers, nfisam_tpu_torch.utils.cuda_build\n"
+            "nfisam_tpu_torch.samplers, nfisam_tpu_torch.utils.cuda_build, "
+            "nfisam_tpu_torch.parallel, "
+            "nfisam_tpu_torch.solver.posterior_pass\n"
+            "from nfisam_tpu_torch.train import fit_flows_batched\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m in ('jax', 'optax', "
             "'nfisam_tpu', 'bench') or m.startswith(('jax.', 'optax.', "
