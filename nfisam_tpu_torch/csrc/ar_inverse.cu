@@ -507,8 +507,12 @@ int dispatch(int d, int h, int K, F&& f) {
 #define NFISAM_AR_CASE(D_, H_, K_) \
   if (d == D_ && h == H_ && K == K_) return f(Shape<D_, H_, K_>{});
 #define NFISAM_AR_CASE_K(D_, H_) \
+  NFISAM_AR_CASE(D_, H_, 5)      \
+  NFISAM_AR_CASE(D_, H_, 6)      \
   NFISAM_AR_CASE(D_, H_, 7)      \
+  NFISAM_AR_CASE(D_, H_, 8)      \
   NFISAM_AR_CASE(D_, H_, 9)      \
+  NFISAM_AR_CASE(D_, H_, 10)     \
   NFISAM_AR_CASE(D_, H_, 12)
   NFISAM_AR_CASE_K(16, 8)
   NFISAM_AR_CASE_K(32, 16)

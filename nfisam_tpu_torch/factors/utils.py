@@ -4,6 +4,7 @@ from __future__ import annotations
 from typing import List, Tuple
 
 from .factors import BinaryFactor, PriorFactor
+from .mixtures import AmbiguousDataAssociationFactor, BinaryFactorWithNullHypo
 
 
 def classify_factors(factors: List, ranked_classes: List) -> List[List]:
@@ -20,10 +21,13 @@ def classify_factors(factors: List, ranked_classes: List) -> List[List]:
     return groups
 
 
-def unpack_prior_binary_nh_da_factors(factors: List) -> Tuple[List, List]:
-    """Split into (priors, plain binary) groups, which drive the clique
-    simulation schedule.  The null-hypothesis and data-association groups
-    of the JAX package come with the mixture factors, which the port does
-    not have yet."""
-    priors, binary = classify_factors(factors, [PriorFactor, BinaryFactor])
-    return priors, binary
+def unpack_prior_binary_nh_da_factors(factors: List) -> Tuple[List, List,
+                                                              List, List]:
+    """Split into (priors, plain binary, null-hypothesis, data-association)
+    groups, which drive the clique simulation schedule.  The ranking puts
+    the null-hypothesis and data-association mixtures before plain binary
+    factors (a null-hypothesis factor is a binary factor too)."""
+    priors, null_hypo, da, binary = classify_factors(
+        factors, [PriorFactor, BinaryFactorWithNullHypo,
+                  AmbiguousDataAssociationFactor, BinaryFactor])
+    return priors, binary, null_hypo, da

@@ -26,9 +26,10 @@ from .nsf import NSFConfig, flow_inverse_masked, stack_inverse_masked
 from .rqs import BOUNDARY_RAW_DERIV
 
 # (dim, hidden) pairs of the solver's dim buckets (hidden = dim // 2, at
-# least 8) and the knot counts the kernel is instantiated for
+# least 8) and the knot counts the kernel is instantiated for: every K the
+# JAX package's entry points and tests use
 SUPPORTED_DIM_HIDDEN = ((16, 8), (32, 16), (64, 32))
-SUPPORTED_KNOTS = (7, 9, 12)
+SUPPORTED_KNOTS = (5, 6, 7, 8, 9, 10, 12)
 WEIGHTS = ("W1", "b1", "W2", "b2", "W3", "b3")
 # what ``ARInverseKernel.info`` reports, in the C function's order
 INFO_FIELDS = ("registers", "local_bytes", "smem_bytes", "threads",

@@ -183,7 +183,8 @@ class BayesTree:
             self.graft_subtree(sub)
         return self
 
-    def prune_affected(self, touched: Set[Variable]
+    def prune_affected(self, touched: Set[Variable],
+                       deep: Set[Variable] = frozenset()
                        ) -> Tuple[Set[Variable], Set["BayesTree"]]:
         """Variables whose cliques must be re-eliminated, plus the detached
         unaffected subtrees.
@@ -192,6 +193,12 @@ class BayesTree:
         descendant is affected (ancestors up to the root are always
         affected).  Matches reference
         ``get_affected_vars_and_partial_bayes_trees`` (BayesTree.py:310).
+
+        ``deep`` variables (mode repair) also affect every clique that
+        merely contains them, separator appearances in descendants
+        included: a flow conditioned on a landmark committed to a wrong
+        mode was trained on simulations from the wrong region, so once the
+        landmark's own clique re-commits, those descendants retrain too.
         """
         var_to_clique = {}
         for clique in self.clique_nodes:
@@ -204,6 +211,13 @@ class BayesTree:
             while node is not None and node not in affected:
                 affected.add(node)
                 node = node.parent
+        if deep:
+            for clique in self.clique_nodes:
+                if deep & clique.vars:
+                    node = clique
+                    while node is not None and node not in affected:
+                        affected.add(node)
+                        node = node.parent
 
         detached: Set[BayesTree] = set()
         stack = [self.root]

@@ -2,7 +2,9 @@
 
 Splits (nodes, factors) into per-step batches for incremental replay,
 emitting each factor as soon as all its endpoints exist; the counterpart
-of ``nfisam_tpu/io/runbatch.py`` without the data-association factors.
+of ``nfisam_tpu/io/runbatch.py``.  An ambiguous-data-association factor
+arrives with its observer (its root variable); its candidates must all be
+in the graph by then.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from ..core.variables import Variable, VariableType
 from ..factors.factors import (BinaryFactor, Factor,
                                SE2RelativeGaussianLikelihoodFactor,
                                UnaryFactor)
+from ..factors.mixtures import AmbiguousDataAssociationFactor
 from .fg_io import read_factor_graph_from_file
 
 StepBatch = Tuple[List[Variable], List[Factor]]
@@ -43,22 +46,25 @@ def _names_look_multirobot(nodes: List[Variable]) -> bool:
     return True
 
 
-def _split_binary(factors):
-    """(pose-pose, pose-landmark) binary factors; anything else raises."""
-    p2p, p2l = [], []
+def _split_factors(factors):
+    """(pose-pose, pose-landmark, data-association) factors; unary ones
+    are skipped and anything else raises."""
+    p2p, p2l, ada = [], [], []
     for f in factors:
         if isinstance(f, UnaryFactor):
             continue
-        if not isinstance(f, BinaryFactor):
+        if isinstance(f, AmbiguousDataAssociationFactor):
+            ada.append(f)
+        elif not isinstance(f, BinaryFactor):
             raise ValueError("Unsupported factor: " + str(f))
-        if f.var1.type == f.var2.type == VariableType.Pose:
+        elif f.var1.type == f.var2.type == VariableType.Pose:
             p2p.append(f)
         elif (f.var1.type == VariableType.Pose and
               f.var2.type == VariableType.Landmark):
             p2l.append(f)
         else:
             raise ValueError("Unsupported factor endpoints: " + str(f))
-    return p2p, p2l
+    return p2p, p2l, ada
 
 
 def _group_single_robot(nodes, factors, incremental_step):
@@ -68,7 +74,7 @@ def _group_single_robot(nodes, factors, incremental_step):
         incremental_step = len(rbt_nodes)
 
     priors = [f for f in factors if isinstance(f, UnaryFactor)]
-    p2p, p2l = _split_binary(factors)
+    p2p, p2l, ada = _split_factors(factors)
 
     batches: List[StepBatch] = []
     new_vars: List[Variable] = []
@@ -91,6 +97,15 @@ def _group_single_robot(nodes, factors, incremental_step):
                 added_lmks.add(f.var2)
                 new_vars.append(f.var2)
         p2l = [f for f in p2l if f not in take]
+        new_factors += take
+
+        take = [f for f in ada if f.root_var == rbt]
+        for f in take:
+            kids = set(f.child_vars)
+            if not (kids.issubset(added_rbts) or kids.issubset(added_lmks)):
+                raise ValueError("ADA factor references future vars: "
+                                 + str(f))
+        ada = [f for f in ada if f not in take]
         new_factors += take
 
         # priors on just-added landmarks
@@ -122,10 +137,14 @@ def _group_multirobot(nodes, factors, incremental_step):
     def push(var, kind, f):
         var2factors.setdefault(var, {}).setdefault(kind, []).append(f)
 
-    pose_pose = {id(f) for f in _split_binary(factors)[0]}
+    pose_pose = {id(f) for f in _split_factors(factors)[0]}
     for f in factors:
         if isinstance(f, UnaryFactor):
             push(f.vars[0], "prior", f)
+        elif isinstance(f, AmbiguousDataAssociationFactor):
+            kind = ("pose_obsv" if f.child_vars[0].type == VariableType.Pose
+                    else "lmk_obsv")
+            push(f.root_var, kind, f)
         elif id(f) in pose_pose:
             if isinstance(f, SE2RelativeGaussianLikelihoodFactor) and \
                     str(f.var1.name)[0] == str(f.var2.name)[0] and \

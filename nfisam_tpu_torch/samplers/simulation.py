@@ -1,12 +1,15 @@
 """Ancestral ("direct") simulation of a clique's joint density.
 
-Counterpart of ``nfisam_tpu/samplers/simulation.py`` without the
-data-association ops: sample the prior factors, propagate through binary
-factors in dependency order (a work queue with deferral that refuses
-landmark->pose sampling), and emit simulated observation columns for
-fully determined factors; these become the flow's augmented-observation
-dims.  The schedule is resolved on the host once per clique; every
-sampling op is a batched tensor call on the sampler's device.
+Counterpart of ``nfisam_tpu/samplers/simulation.py``: sample the prior
+factors, propagate through binary factors in dependency order (a work
+queue with deferral that refuses landmark->pose sampling; null-hypothesis
+factors join the queue once it is empty), then the data-association
+factors: an observation draw when every endpoint is sampled, else a draw
+of the observer from its candidates.  Fully determined factors emit
+simulated observation columns; these become the flow's
+augmented-observation dims.  The schedule is resolved on the host once
+per clique; every sampling op is a batched tensor call on the sampler's
+device.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from ..utils.keys import split_host
 class ScheduleOp:
     """One step of the simulation schedule."""
     kind: str          # 'prior' | 'prior_cond' | 'forward' | 'backward' |
-                       # 'observe'
+                       # 'observe' | 'observe_da' | 'sample_observer'
     factor: Factor
     out_var: Optional[Variable] = None   # for sampling ops
 
@@ -42,7 +45,8 @@ def compile_schedule(factors: Sequence[Factor],
                      variable_pattern: Sequence[Variable]
                      ) -> SimulationSchedule:
     """Resolve the work queue into a static op list."""
-    priors, binaries = unpack_prior_binary_nh_da_factors(list(factors))
+    priors, binaries, nh, da = unpack_prior_binary_nh_da_factors(
+        list(factors))
     sampled: set = set()
     ops: List[ScheduleOp] = []
     obs_vars: List[Variable] = []
@@ -70,9 +74,13 @@ def compile_schedule(factors: Sequence[Factor],
         sampled.update(f.vars)
 
     queue = list(binaries)
+    added_nh = False
     unresolved: List[Factor] = []
     guard = 0
-    while queue:
+    while queue or (nh and not added_nh):
+        if not added_nh and not queue:
+            queue = list(nh)
+            added_nh = True
         f = queue.pop(0)
         known = [v for v in f.vars if v in sampled]
         if len(known) == 0:
@@ -109,6 +117,22 @@ def compile_schedule(factors: Sequence[Factor],
                 continue
             ops.append(ScheduleOp("backward", f, out_var=v1))
             sampled.add(v1)
+
+    for f in da:
+        if set(f.vars).issubset(sampled):
+            unused_obs += list(np.asarray(f.observation).reshape(-1))
+            ops.append(ScheduleOp("observe_da", f))
+            obs_vars.append(f.observation_var)
+        else:
+            missing = set(f.vars) - sampled
+            if missing == {f.observer_var}:
+                ops.append(ScheduleOp("sample_observer", f,
+                                      out_var=f.observer_var))
+                sampled.add(f.observer_var)
+            else:
+                raise ValueError(
+                    "Unsampled data-association variables: " +
+                    " ".join(str(v.name) for v in missing))
 
     for f in unresolved:
         if set(f.vars).issubset(sampled):
@@ -166,6 +190,12 @@ def execute_schedule(key, schedule: SimulationSchedule,
         elif op.kind == "observe":
             obs_cols.append(f.sample(k, var1=var_samples[f.vars[0]],
                                      var2=var_samples[f.vars[1]]))
+        elif op.kind == "observe_da":
+            vs = {v: var_samples[v] for v in f.vars}
+            obs_cols.append(f.sample_observations(k, vs))
+        elif op.kind == "sample_observer":
+            var_samples[op.out_var] = f.sample_observer(
+                k, {v: var_samples[v] for v in f.vars if v in var_samples})
         else:  # pragma: no cover
             raise ValueError(op.kind)
     var_samples["_obs"] = obs_cols

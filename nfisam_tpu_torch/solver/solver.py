@@ -2,13 +2,18 @@
 
 Counterpart of ``nfisam_tpu/solver/solver.py``: physical vs working graph
 split, elimination orderings, incremental Bayes-tree surgery with
-density-model recycling, leaves-to-root clique fitting, and the
-root-to-leaf posterior pass: fused over one buffer
+density-model recycling and mode repair, leaves-to-root clique fitting,
+and the root-to-leaf posterior pass: fused over one buffer
 (``posterior_pass.py``), or clique by clique.  All numeric work runs on the
 solver's device (``cuda`` unless the caller names another); the solver
-only sequences it.  Mode repair (the JAX package's evidence-aware
-recycling) is not ported yet: ``mode_repair`` defaults to off here and
-raises when switched on.
+only sequences it.
+
+Mode repair reads the posterior synchronously: where the JAX package
+checks new evidence against a 256-row subsample fetched by a background
+thread (possibly one step stale, and different run to run), the port
+copies the first 256 rows of the current posterior to the host at the
+check, and only when a new range or range-mixture factor touches an old
+variable.
 """
 from __future__ import annotations
 
@@ -19,14 +24,26 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..core.variables import Variable
-from ..factors.factors import Factor, ImplicitPriorFactor
+from ..core.variables import Variable, VariableType
+from ..factors.factors import (Factor, ImplicitPriorFactor,
+                               SE2RelativeGaussianLikelihoodFactor,
+                               _RangeFactorBase)
+from ..factors.mixtures import BinaryFactorMixture
 from ..graph.bayes_tree import BayesTree, CliqueNode
 from ..graph.factor_graph import FactorGraph, pose_first_ordering
 from ..samplers.simulation import SimulationBasedSampler
 from ..utils.device import resolve_device
 from ..utils.keys import KeyStream
 from .posterior_pass import fused_sample_posterior, topological_cliques
+
+# mode repair: posterior rows the check reads; a new range contradicts its
+# endpoints when (almost) no sample lies within this many sigma of the
+# measured ring; thrash rails: at most this many repaired variables an
+# update, and a repaired variable is immune for this many updates after
+REPAIR_SNAPSHOT_ROWS = 256
+MODE_REPAIR_SIGMA = 4.0
+MODE_REPAIR_MAX_PER_STEP = 3
+MODE_REPAIR_COOLDOWN = 10
 
 
 @dataclass
@@ -35,7 +52,12 @@ class SolverArgs:
     posterior_sample_num: int = 500
     local_sample_num: int = 500
     seed: int = 0
-    mode_repair: bool = False
+    # evidence-aware recycling (mode repair): when a NEW range factor is
+    # inconsistent with the whole committed posterior of its endpoints
+    # (no sample within ``MODE_REPAIR_SIGMA`` of the measured ring), the
+    # contradicted landmark's cliques are re-eliminated instead of
+    # recycled, so their flows retrain against all current evidence
+    mode_repair: bool = True
 
 
 class CliqueSeparatorFactor(ImplicitPriorFactor):
@@ -53,9 +75,6 @@ class FactorGraphSolver:
     """Incremental solver; density modeling is subclass policy."""
 
     def __init__(self, args: SolverArgs, device=None):
-        if args.mode_repair:
-            raise NotImplementedError(
-                "mode repair is not ported yet; use mode_repair=False")
         if args.elimination_method not in ("natural", "pose_first"):
             raise NotImplementedError(
                 f"elimination method {args.elimination_method!r} is not "
@@ -77,6 +96,12 @@ class FactorGraphSolver:
         self._reverse_ordering_map: Dict[Variable, int] = {}
         self._temp_training_loss: Dict[str, tuple] = {}
         self._keys = KeyStream(args.seed)
+        # variables re-eliminated by mode repair, in trigger order (one
+        # entry per repaired variable per step)
+        self.mode_repair_log: List[str] = []
+        self._update_count = 0
+        self._repair_cooldown: Dict[Variable, int] = {}
+        self._repair_vars: set = set()
 
     # ------------------------------------------------------------ plumbing
     def _next_key(self):
@@ -126,10 +151,28 @@ class FactorGraphSolver:
         for f in self._new_factors:
             touched |= set(f.vars)
         touched &= old_nodes
+        repaired: set = set()
+        self._update_count += 1
+        if self._args.mode_repair and self._samples:
+            cool = self._repair_cooldown
+            repaired = {
+                v for v in self._mode_contradicted_vars(old_nodes)
+                if self._update_count - cool.get(v, -10 ** 9)
+                > MODE_REPAIR_COOLDOWN}
+            if len(repaired) > MODE_REPAIR_MAX_PER_STEP:
+                repaired = set(sorted(
+                    repaired, key=str)[:MODE_REPAIR_MAX_PER_STEP])
+            for v in repaired:
+                cool[v] = self._update_count
+            self.mode_repair_log.extend(
+                sorted(str(v.name) for v in repaired))
+            touched |= repaired
+        self._repair_vars = repaired
 
         if self._physical_bayes_tree is not None:
             affected, sub_trees = \
-                self._physical_bayes_tree.prune_affected(touched)
+                self._physical_bayes_tree.prune_affected(touched,
+                                                         deep=repaired)
             # canonical subtree order: it decides separator-prior factor
             # order in the working graph (=> schedules, key assignment)
             sub_trees = sorted(sub_trees, key=lambda t: str(t.root))
@@ -164,20 +207,129 @@ class FactorGraphSolver:
         new_factor_vars: set = set()
         for f in self._new_factors:
             new_factor_vars |= set(f.vars)
-        self._recycle_root_models(old_ordering,
+        self._recycle_root_models(old_ordering, no_recycle=repaired,
                                   no_recycle_frontal=new_factor_vars)
 
         self._new_nodes = []
         self._new_factors = []
         return self
 
+    def _mode_contradicted_vars(self, old_nodes) -> set:
+        """Old variables whose committed posterior the NEW evidence cannot
+        explain, landmarks first.
+
+        A new range(-mixture) factor with an old endpoint is contradicted
+        when, for every hypothesis, (almost) no posterior sample lies
+        within ``MODE_REPAIR_SIGMA`` of the measured ring: the 2nd
+        percentile of |dist - r|, so a couple of stray samples cannot mask
+        a wrong-mode commitment.  New poses are dead-reckoned through the
+        new SE(2) odometry from committed samples, so a range from the
+        current pose to an old landmark is tested too.  The snapshot is
+        read (one device-to-host copy) only if such a factor exists."""
+        if not any(isinstance(f, (BinaryFactorMixture, _RangeFactorBase))
+                   and any(v in old_nodes for v in f.vars)
+                   for f in self._new_factors):
+            return set()
+        col_view = self._snapshot_columns()
+        if col_view is None:
+            return set()
+
+        dr: Dict[Variable, np.ndarray] = {}
+
+        def lookup(v):
+            s = col_view(v)
+            return dr.get(v) if s is None else s
+
+        progress = True
+        while progress:
+            progress = False
+            for f in self._new_factors:
+                if not isinstance(f, SE2RelativeGaussianLikelihoodFactor):
+                    continue
+                v1, v2 = f.vars[0], f.vars[1]
+                s1 = lookup(v1)
+                if s1 is None or lookup(v2) is not None:
+                    continue
+                c, s = np.cos(s1[:, 2]), np.sin(s1[:, 2])
+                dx, dy, dth = (float(f.obs[0]), float(f.obs[1]),
+                               float(f.obs[2]))
+                dr[v2] = np.stack(
+                    [s1[:, 0] + c * dx - s * dy,
+                     s1[:, 1] + s * dx + c * dy,
+                     s1[:, 2] + dth], axis=1)
+                progress = True
+
+        specs = []          # (factor, [(v1, v2, r, sigma), ...])
+        for f in self._new_factors:
+            if isinstance(f, BinaryFactorMixture):
+                rings = [(c.vars[0], c.vars[1], float(c.obs[0]),
+                          float(c.sigma)) for c in f.components
+                         if isinstance(c, _RangeFactorBase)]
+            elif isinstance(f, _RangeFactorBase):
+                rings = [(f.vars[0], f.vars[1], float(f.obs[0]),
+                          float(f.sigma))]
+            else:
+                continue
+            if not rings or any(
+                    lookup(v) is None
+                    for (v1, v2, _, _) in rings for v in (v1, v2)):
+                continue        # an endpoint has neither committed
+            if not any(v in old_nodes       # posterior nor dead-reckon
+                       for (v1, v2, _, _) in rings for v in (v1, v2)):
+                continue        # nothing committed to repair
+            specs.append((f, rings))
+
+        out: set = set()
+        for f, rings in specs:
+            consistent = False
+            for (v1, v2, r, sg) in rings:
+                d = np.linalg.norm(lookup(v2)[:, :2] - lookup(v1)[:, :2],
+                                   axis=1)
+                if np.quantile(np.abs(d - r), 0.02) <= \
+                        MODE_REPAIR_SIGMA * sg:
+                    consistent = True
+                    break
+            if consistent:
+                continue
+            for (v1, v2, r, sg) in rings:
+                lmks = [v for v in (v1, v2)
+                        if v.type == VariableType.Landmark
+                        and v in old_nodes]
+                out.update(lmks if lmks else
+                           (v for v in (v1, v2) if v in old_nodes))
+        return out
+
+    def _snapshot_columns(self):
+        """Accessor ``v -> (m, v.dim)`` host array over the first
+        m = min(256, n) rows of the current posterior, copied one variable
+        at a time as the check asks for it; None before the first
+        posterior."""
+        samples = self._samples
+        if not samples:
+            return None
+        rows = REPAIR_SNAPSHOT_ROWS
+        cache: Dict = {}
+
+        def view(v):
+            if v not in samples:
+                return None
+            out = cache.get(v)
+            if out is None:
+                out = cache[v] = samples[v][:rows].cpu().numpy()
+            return out
+
+        return view
+
     def _recycle_root_models(self, old_ordering: List[Variable],
+                             no_recycle: set = frozenset(),
                              no_recycle_frontal: set = frozenset()
                              ) -> None:
         """An old clique that reappears with the same variables and
         in-clique ordering keeps its density model after a
-        separator/frontal re-split; ``no_recycle_frontal`` blocks recycling
-        where one of those variables is frontal."""
+        separator/frontal re-split.  ``no_recycle`` (mode-repaired
+        variables) blocks recycling of any old clique containing one, so
+        the flow the repair evicted does not come back; ``no_recycle_frontal``
+        blocks recycling where one of those variables is frontal."""
         stale = set(self._clique_density_model.keys()) - \
             self._physical_bayes_tree.clique_nodes
         if not stale:
@@ -189,6 +341,8 @@ class FactorGraphSolver:
         new_pos = {v: i for i, v in enumerate(self._elimination_ordering)}
         matches = []
         for old_clique in sorted(stale, key=str):
+            if no_recycle & old_clique.vars:
+                continue
             new_clique = by_vars.get(frozenset(old_clique.vars))
             if new_clique is None:
                 continue

@@ -53,6 +53,18 @@ def test_cuda_kernel_matches_plain(cuda, case):
     np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), **TOL)
 
 
+@pytest.mark.parametrize("d,h", [(16, 8), (32, 16), (64, 32)])
+@pytest.mark.parametrize("K", [5, 6, 8, 10])
+def test_cuda_added_knot_counts_match_plain(cuda, d, h, K):
+    """The knot counts added beside 7/9/12 (the JAX package's entry points
+    and tests use them), at every dim bucket, with a circular column."""
+    (cfg, params, z, xp, mask), on_card = _case(
+        (f"K{K} d{d}", 300, d, h, K, 1, 3, (d - 2,)), seed=K)
+    ref = stack_inverse_masked_plain(params, z, xp, mask, cfg)
+    got = stack_inverse_masked_cuda(*on_card[1:], cfg)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), **TOL)
+
+
 def test_cuda_launch_counter_counts_each_flow(cuda):
     _, (cfg, params, z, xp, mask) = _case(
         ("two flows", 100, 16, 8, 9, 2, 3, ()))
@@ -72,7 +84,7 @@ def test_cuda_kernel_raises_on_bad_inputs(cuda):
         ar_inverse_kernel(params[0], wide[:, ::2], xp, mask, cfg)
     with pytest.raises(ValueError, match="no instantiation"):
         ar_inverse_kernel(params[0], z, xp, mask,
-                          NSFConfig(dim=16, num_knots=8, hidden_dim=8))
+                          NSFConfig(dim=16, num_knots=11, hidden_dim=8))
     assert ar_inverse_kernel.launches == before
 
 

@@ -7,7 +7,8 @@ the posteriors in distribution (the bounds of ``test_torch_solver.py``).
 A graph of disjoint robots fills the batched trainer's buckets.
 
 Run as a script, ``python tests/test_torch_scheduler.py``, it solves the
-first 10 incremental steps of plaza1 with the JAX package's
+first ``chip_smoke.PLAZA_STEPS`` incremental steps of plaza1 (or as many
+as ``jax_plaza_reference`` is given) with the JAX package's
 ``ParallelNFiSAM`` on the CPU at ``chip_smoke.py``'s plaza configuration
 (mode repair off) and prints the posterior-mean translation error against
 the ground truth: the reference point for the port's plaza1 gate on the
@@ -199,9 +200,10 @@ def test_multi_robot_buckets_reach_four_in_both():
 
 
 def test_chip_smoke_paths_run_on_cpu_at_small_size():
-    """``chip_smoke.py``'s plaza1 and robots paths, and its fused-pass
-    check, driven on the CPU at a small size: one plaza1 step, two robots
-    of three poses, 30 Adam iterations."""
+    """``chip_smoke.py``'s plaza1, robots, mode-repair, separator-trap,
+    case1_da and plaza1_ada0.2 paths, and its fused-pass check, driven on
+    the CPU at a small size: one plaza1 step, two robots of three poses,
+    two plaza1_ada0.2 steps, 30 Adam iterations."""
     small = dict(local_sample_num=200, flow_iterations=30,
                  posterior_sample_num=300)
     steps, samples, truth, solver = chip_smoke.solve_plaza("cpu", steps=1,
@@ -220,6 +222,34 @@ def test_chip_smoke_paths_run_on_cpu_at_small_size():
     assert max(b for _, _, b in solvers[0].bucket_log) == 2
     assert moments[0].shape == moments[1].shape == (2, 2)
     assert np.isfinite(moments).all()
+    # the mode-repair graph, case1_da and two plaza1_ada0.2 steps
+    _, samples, solver = chip_smoke.solve_repair("cpu", **small)
+    log_, med, share = chip_smoke.repair_gates(solver, samples)
+    assert log_ == ["L1"] and np.isfinite([med, share]).all()
+    assert chip_smoke.fused_vs_per_clique(solver)[0] == 0.0
+    for x0_ranges in (True, False):
+        _, samples, solver = chip_smoke.solve_separator_repair(
+            "cpu", x0_ranges, **small)
+        holding, sep_only, kept = chip_smoke.separator_repair_cliques(solver)
+        assert solver.mode_repair_log == ["L1"]
+        assert sep_only and kept == [] and set(sep_only) < set(holding)
+        assert all(np.isfinite(x).all() for x in samples.values())
+        assert chip_smoke.fused_vs_per_clique(solver)[0] == 0.0
+    _, samples, truth, mixtures, solver = chip_smoke.solve_case1_da(
+        0, "cpu", **small)
+    weights = chip_smoke.da_weights(mixtures, samples)
+    assert sorted(weights) == sorted(chip_smoke.DA_TRUE)
+    assert all(abs(sum(w.values()) - 1.0) < 1e-9 for w in weights.values())
+    assert chip_smoke.fused_vs_per_clique(solver)[0] == 0.0
+    steps, per_step, truth, mixtures, solver = chip_smoke.solve_plaza_ada(
+        "cpu", steps=2, **small)
+    assert [len(m) for m in mixtures] == [0, 1]
+    count, mean_w, resolved = chip_smoke.hypo_snapshot(mixtures[1],
+                                                       per_step[1], truth)
+    assert count == 1 and 0.0 <= resolved <= 1.0 and 0.0 < mean_w < 1.0
+    assert np.isfinite(chip_smoke.translation_errors(per_step[1],
+                                                     truth)).all()
+    assert chip_smoke.fused_vs_per_clique(solver)[0] == 0.0
 
 
 def test_parallel_solver_defaults_to_cuda():

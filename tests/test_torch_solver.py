@@ -218,7 +218,7 @@ def test_solver_without_device_raises_on_a_cpu_only_host():
         NFiSAM(NFiSAMArgs(**SMALL))
 
 
-@pytest.mark.parametrize("bad", [dict(mode_repair=True),
+@pytest.mark.parametrize("bad", [dict(elimination_method="minimum_degree"),
                                  dict(checkpoint_dir="ckpt"),
                                  dict(elimination_method="ccolamd"),
                                  dict(flow_type="RealNVP")])
