@@ -30,7 +30,9 @@ of JAX or of the JAX package, and exits non-zero if any phase fails:
    ``ParallelNFiSAM`` at the plaza configuration (2000 training samples,
    K=9, hidden 8, lr 0.01, w=50/tol=0.01, 1000 posterior draws, seed 0),
    per-step times, cliques trained and launches; gate: max posterior-mean
-   translation error against the ``.fg``'s ground truth <= 15 m;
+   translation error against the ``.fg``'s ground truth <= max(3x the
+   JAX package's truth-initialised MAP floor's max error over the prefix,
+   15 m), the port's own floor over the prefix printed beside it;
 7. 8 disjoint robots of 4 poses, each ranging a landmark that has a
    tight prior, by ``ParallelNFiSAM`` and by ``NFiSAM`` (512 posterior
    draws, 768 training samples, <= 700 iterations, K=7, lr 0.03); gates:
@@ -56,11 +58,28 @@ of JAX or of the JAX package, and exits non-zero if any phase fails:
    iterations, K=9, lr 0.025, 1000 posterior draws, mode repair on) for
    seeds 0-2; gates per seed: every pose's posterior-mean error < 3 m and
    the posterior weight on X1->L1 and on X4->L2 > 0.7;
-11. plaza1_ada0.2's first 10 incremental steps (5 poses a step) by
+11. plaza1_ada0.2's first 5 incremental steps (5 poses a step) by
    ``ParallelNFiSAM`` at the plaza configuration with mode repair on;
    the DA true-association weight, the resolved fraction and the repair
-   log are printed; gate: max posterior-mean translation error <= 15 m;
-12. on each of those solvers' final state, the fused pass against the
+   log are printed; gate: as plaza1's, with this prefix's floor;
+12. the MAP floors at full size: the truth-initialised banked floor
+   (``IncrementalGaussNewtonMAP``) over the whole plaza1 and 1101-pose
+   Manhattan graphs, ``GaussNewtonMAP`` from the truth over the whole
+   manhattan_plaza graph; gates: RMSE within 0.01 m of the JAX package's
+   CPU band in the port's dtype (its banked program in float64), and a
+   final NLL no higher than that band's nor than the JAX package's own
+   float32 figure (``map_gate``); then the banked
+   MAP's Hessian-vector products timed at plaza1's truth (an eager
+   ``jvp`` of ``grad`` against the assembled sparse Hessian, which must
+   agree within 1e-6);
+13. the Manhattan-scale runner's smoke (the g8 graph, ccolamd, one pose a
+   step, 2000 training samples, <= 500 iterations, K=9, lr 0.01, mode
+   repair on) for its first 11 steps with the incremental MAP solved each
+   step; per-step wall, surgery, fit, posterior and floor times, launches
+   and cliques by dim bucket; gate: raw translation RMSE <= 40 m and the
+   posterior anchored in the incremental MAP's gauge <= 2x that MAP's
+   RMSE;
+14. on each of those solvers' final state, the fused pass against the
    per-clique walk from the same key stream: max |diff| <= 1e-6 of the
    samples' scale, and both passes' times;
 
@@ -162,13 +181,95 @@ DA_GATED = ("X1", "X4")
 DA_TPU_WEIGHTS = {"X1": 0.996, "X2": 0.875, "X3": 0.817, "X4": 0.991}
 # plaza1_ada0.2 (plaza1 with 20% of its ranges ambiguous over the 4
 # landmarks) at the plaza configuration with mode repair on, cut to its
-# first PLAZA_ADA_STEPS steps
+# first PLAZA_ADA_STEPS steps (5 of 156: with the MAP and Manhattan-scale
+# phases the whole run must stay inside its time limit on a slow host)
 PLAZA_ADA_FG = os.path.join(HERE, "data", "plaza1_ada0.2_factor_graph.fg")
 PLAZA_ADA_ARGS = {**PLAZA_ARGS, "mode_repair": True}
-PLAZA_ADA_STEPS = 10
+PLAZA_ADA_STEPS = 5
 # a DA factor counts as resolved at a posterior weight above this on its
 # true association (scripts/plaza_family_run.py)
 DA_RESOLVED = 0.9
+# the plaza prefixes' divergence gate (scripts/plaza_family_run.py:168-172):
+# max posterior-mean error <= max(3x the truth-initialised MAP floor's max
+# error over the prefix's own nodes and factors, 15 m), that floor the JAX
+# package's (JAX_PREFIX_FLOOR_MAX)
+PLAZA_FLOOR_FACTOR = 3.0
+# the MAP floors at full size: the truth-initialised banked floor
+# (plaza_family_run.py's map_floor recipe: 15 warm LM-CG iterations) over
+# the whole plaza1 and 1101-pose Manhattan graphs, and GaussNewtonMAP from
+# the truth column over the whole manhattan_plaza graph
+MANHATTAN_SCALE_FG = os.path.join(
+    HERE, "data", "manhattan_scale_g16_l6_ada0.2_rp1_rw.fg")
+MANHATTAN_PLAZA_FG = os.path.join(HERE, "data",
+                                  "manhattan_plaza_factor_graph.fg")
+# the full-size MAP cases: label -> (graph, solver), the solver "banked"
+# for the truth-initialised IncrementalGaussNewtonMAP floor, "laplace" for
+# GaussNewtonMAP from the truth column
+MAP_CASES = {
+    "plaza1 truth floor": (PLAZA1_FG, "banked"),
+    "manhattan g16 truth floor": (MANHATTAN_SCALE_FG, "banked"),
+    "manhattan_plaza Laplace MAP": (MANHATTAN_PLAZA_FG, "laplace"),
+}
+# each case's figures from the JAX package on the CPU (``JAX_PLATFORMS=cpu
+# python tests/test_torch_map.py``): its own solve from the truth (RMSE m,
+# max error m, LM iterations, final NLL), and the band ((RMSE lo, hi), (NLL
+# lo, hi)) over the truth and three starts moved by 2e-7 of themselves of
+# its solve in the port's dtype: its banked LM-CG program in float64
+# (``test_torch_map.JaxFloat64MAP``; the port's ``MAP_DTYPE``), and
+# GaussNewtonMAP in float32, as in both packages
+JAX_MAP_FLOORS = {
+    "plaza1 truth floor": (0.31164272078311206, 1.106602455073327, 15,
+                           -5115.55419921875),
+    "manhattan g16 truth floor": (1.0613879826757084, 3.3519659412475225,
+                                  10, -3287.762451171875),
+    "manhattan_plaza Laplace MAP": (7.545495228381698, 14.216541655043805,
+                                    100, -477.1616516113281),
+}
+JAX_MAP_BANDS = {
+    "plaza1 truth floor": ((0.38566065871435345, 0.3919802502185818),
+                           (-5118.428332128017, -5118.38011183169)),
+    "manhattan g16 truth floor": ((1.0630196156523468, 1.0631021658017803),
+                                  (-3287.7709831176926, -3287.770727888295)),
+    "manhattan_plaza Laplace MAP": ((7.545495228381698, 7.575012279267921),
+                                    (-477.1619873046875, -477.1614990234375)),
+}
+# the gates on each card figure (PERF.md gives the readings each limit was
+# set from): RMSE within MAP_RMSE_TOL_M of its JAX_MAP_BANDS band, and a
+# final NLL no higher than that band's by MAP_BAND_NLL_RTOL of it nor than
+# the JAX package's own solve's by MAP_NLL_RTOL.  A banked floor solved in
+# float32 stops at its iteration cap wherever its rounding takes it
+# (plaza1: the JAX package's 0.2817-0.3117 m, the port's 0.3486-0.3641 m
+# on the card at NLL -5117.52 to -5117.91), which the first two gates fail
+MAP_RMSE_TOL_M = 0.01
+MAP_BAND_NLL_RTOL = 2e-6
+MAP_NLL_RTOL = 1e-5
+# the JAX package's truth-initialised floor over each plaza prefix's nodes
+# and factors: its max error (m) on the CPU (same script), which bounds the
+# divergence gate as in plaza_family_run.py.  Its float32 solve stops at
+# its 15-iteration cap near the truth start; the port's float64 floor
+# (printed beside) goes on farther (plaza1 max 3.31 m on the CPU, JAX's
+# own in float64 2.15 m), so it would loosen the bound
+JAX_PREFIX_FLOOR_MAX = {"plaza1": 0.9797327337812113,
+                        "plaza1_ada0.2": 1.006755522254178}
+# the Manhattan-scale runner's smoke (scripts/manhattan_scale_run.py --grid
+# 8 --landmarks 6: 64 poses, 6 landmarks, 114 factors, 8 ADA) at its
+# configuration (:197-202: ParallelNFiSAM, ccolamd, one pose a step, 2000
+# training samples, <= 500 iterations, K=9, h=8, lr 0.01, 1000 draws,
+# seed 0, mode repair on), with the warm-started incremental MAP solved
+# every step.  Cut to MANHATTAN_STEPS: at step 11 both packages raise (the
+# simulation of the leaf clique {L3 | X11} has no prior to start from;
+# ROADMAP §C)
+MANHATTAN_G8_FG = os.path.join(HERE, "data",
+                               "manhattan_scale_g8_l6_ada0.2_s60.fg")
+MANHATTAN_ARGS = dict(posterior_sample_num=1000, local_sample_num=2000,
+                      flow_iterations=500, num_knots=9, learning_rate=0.01,
+                      hidden_dim=8, elimination_method="ccolamd", seed=0)
+MANHATTAN_STEPS = 11
+# the runner's accuracy gate (:433-436): raw translation RMSE <= 40 m and
+# the posterior anchored in the incremental MAP's gauge <= 2x that MAP's
+# raw RMSE
+MANHATTAN_RAW_GATE_M = 40.0
+MANHATTAN_ANCHORED_FACTOR = 2.0
 
 
 def log(msg: str) -> None:
@@ -183,16 +284,20 @@ def host_samples(samples) -> dict:
     buffer in one copy)."""
     if hasattr(samples, "materialize"):
         samples = samples.materialize()
-    return {str(v.name): x.cpu().numpy() if torch.is_tensor(x) else x
-            for v, x in samples.items()}
+    return {str(v.name): x.cpu().numpy() if torch.is_tensor(x)
+            else np.asarray(x) for v, x in samples.items()}
 
 
-def run_incremental(solver, batches, device):
+def run_incremental(solver, batches, device, after_step=None):
     """Drive an incremental solve through the solver's entry points.
     Returns (per-step timings {"s", "surgery_s", "fit_s", "posterior_s",
-    "iters", "trained", "launches"}, per-step host samples {name: (n,
-    dim)}).  On a card every phase ends in a synchronize, so its time is
-    the device's too; ``launches`` counts the AR-inverse kernel's."""
+    "iters", "trained", "launches", "buckets"}, per-step host samples
+    {name: (n, dim)}).  On a card every phase ends in a synchronize, so its
+    time is the device's too; ``launches`` counts the AR-inverse kernel's,
+    ``buckets`` lists the step's (padded dim, n, cliques) training buckets
+    of a solver that logs them.  ``after_step(new nodes, new factors)``
+    runs after each step's posterior, and the dict it returns joins the
+    step's timings."""
     from nfisam_tpu_torch.flows import ar_inverse_kernel
 
     sync = torch.cuda.synchronize if torch.device(device).type == "cuda" \
@@ -201,6 +306,7 @@ def run_incremental(solver, batches, device):
     for ns, fs in batches:
         sync()
         launches = ar_inverse_kernel.launches
+        n_buckets = len(getattr(solver, "bucket_log", []))
         t0 = time.perf_counter()
         for n in ns:
             solver.add_node(n)
@@ -219,7 +325,11 @@ def run_incremental(solver, batches, device):
                       "iters": [int(t) for _, t in
                                 solver._temp_training_loss.values()],
                       "trained": len(solver._temp_training_loss),
-                      "launches": ar_inverse_kernel.launches - launches})
+                      "launches": ar_inverse_kernel.launches - launches,
+                      "buckets": list(getattr(solver, "bucket_log",
+                                              [])[n_buckets:])})
+        if after_step is not None:
+            steps[-1].update(after_step(ns, fs))
         per_step.append(host_samples(samples))
     return steps, per_step
 
@@ -560,11 +670,180 @@ def fused_vs_per_clique(solver):
 def translation_errors(samples, truth):
     """(max, RMSE) of the posterior-mean translation error (m) over the
     variables with a ground truth; values are (n, dim) samples by name."""
-    errs = np.array([np.linalg.norm(np.asarray(x)[:, :2].mean(0) -
-                                    np.asarray(truth[name])[:2])
-                     for name, x in samples.items()
-                     if name in truth])
-    return float(errs.max()), float(np.sqrt(np.mean(errs ** 2)))
+    rmse, worst = point_errors({name: np.asarray(x)[:, :2].mean(0)
+                                for name, x in samples.items()}, truth)
+    return worst, rmse
+
+
+def point_errors(est, truth) -> tuple:
+    """(RMSE, max) of a point estimate's translation error (m) over the
+    variables with a ground truth; both keyed alike."""
+    errs = np.array([np.linalg.norm(np.asarray(est[v])[:2] -
+                                    np.asarray(truth[v])[:2])
+                     for v in est if v in truth])
+    return float(np.sqrt(np.mean(errs ** 2))), float(errs.max())
+
+
+def floor_from_truth(m, truth) -> dict:
+    """The truth-initialised MAP floor (``scripts/plaza_family_run.py``
+    ``map_floor``; ``manhattan_scale_run.py:366-376``): ``m``, an
+    ``IncrementalGaussNewtonMAP`` of either package holding the graph,
+    starts from the ground-truth column and counts as solved once, so the
+    solve is warm (at most 15 LM iterations).  Returns {"rmse", "max",
+    "iters", "nll", "s", "est"} with ``est`` keyed like ``truth``."""
+    x = np.zeros(m.dim, np.float32)
+    for v in m.vars:
+        x[m.offset[v]:m.offset[v] + v.dim] = np.asarray(truth[v])[:v.dim]
+    m._x = x
+    m._solved_once = True
+    seconds = []
+    m.solve(timer=seconds)
+    est = m.results()
+    rmse, worst = point_errors(est, truth)
+    return dict(rmse=rmse, max=worst, iters=m.last_iterations,
+                nll=m.last_nll, s=seconds[0], est=est)
+
+
+def laplace_from_truth(m, truth) -> dict:
+    """``GaussNewtonMAP`` of either package (``m``) from the ground-truth
+    column (``scripts/manhattan_plaza_run.py``'s floor, started where the
+    GTSAM harness starts).  Returns {"rmse", "max", "iters", "nll", "s"}."""
+    x0 = np.concatenate([np.asarray(truth[v], np.float32)[:v.dim]
+                         for v in m.joint.vars])
+    seconds = []
+    m.solve(x0=x0, timer=seconds)
+    rmse, worst = point_errors(m.results(), truth)
+    return dict(rmse=rmse, max=worst, iters=m.iterations,
+                nll=m.final_nll, s=seconds[0])
+
+
+def map_case(label: str, parse, new_solver) -> dict:
+    """One of ``MAP_CASES`` through a package's parser
+    (``parse(path) -> (nodes, truth, factors)``) and the case's MAP solver:
+    ``new_solver()`` for a banked floor, ``new_solver(nodes, factors)`` for
+    a Laplace MAP."""
+    path, kind = MAP_CASES[label]
+    nodes, truth, factors = parse(path)
+    if kind == "laplace":
+        return laplace_from_truth(new_solver(nodes, factors), truth)
+    m = new_solver()
+    m.update(nodes, factors)
+    return floor_from_truth(m, truth)
+
+
+def prefix_floor(path: str, steps: int, device, step: int = 5) -> dict:
+    """The truth-initialised floor over the nodes and factors of a
+    stream's first ``steps`` incremental steps (``step`` poses a step)."""
+    from nfisam_tpu_torch.io import (graph_file_parser,
+                                     group_nodes_factors_incrementally)
+    from nfisam_tpu_torch.solver import IncrementalGaussNewtonMAP
+
+    nodes, truth, factors = graph_file_parser(path)
+    batches = group_nodes_factors_incrementally(
+        nodes, factors, incremental_step=step)[:steps]
+    m = IncrementalGaussNewtonMAP(device=device)
+    m.update([n for ns, _ in batches for n in ns],
+             [f for _, fs in batches for f in fs])
+    return floor_from_truth(m, truth)
+
+
+def plaza_floor_gate(label: str, worst: float, floor: dict) -> None:
+    """``scripts/plaza_family_run.py``'s divergence gate: max error <=
+    max(3x the JAX package's floor max error over the prefix, 15 m), with
+    the port's own floor (``floor``) printed beside it."""
+    bound = max(PLAZA_FLOOR_FACTOR * JAX_PREFIX_FLOOR_MAX[label],
+                PLAZA_GATE_M)
+    log(f"{label} gate: max posterior-mean translation error {worst:.3f} m"
+        f" (<= max({PLAZA_FLOOR_FACTOR} x the JAX package's floor max "
+        f"{JAX_PREFIX_FLOOR_MAX[label]:.4f}, {PLAZA_GATE_M}) = "
+        f"{bound:.3f}); the port's truth-initialised MAP floor over the "
+        f"prefix: RMSE {floor['rmse']:.4f} m, max {floor['max']:.4f} m, "
+        f"{floor['iters']} LM iterations, NLL {floor['nll']:.4f}, "
+        f"{floor['s']:.3f} s")
+    if not worst <= bound:
+        raise SystemExit(f"{label} divergence gate failed")
+
+
+def scale_metrics(samples, truth, inc_est, floor_est) -> dict:
+    """``scripts/manhattan_scale_run.py``'s accuracy read-out (:251-376),
+    all keyed by name: raw posterior-mean translation RMSE, after a
+    similarity (Kabsch-Umeyama) alignment to the truth, and anchored (the
+    posterior means moved by the rigid transform that best maps them onto
+    the incremental MAP, truth unseen); the incremental MAP's and the
+    truth-initialised floor's RMSE; the share of variables whose truth lies
+    inside the 95% ellipse of its samples."""
+    from nfisam_tpu_torch.eval import kabsch_umeyama, rigid_gauge_transform
+
+    names = [n for n in samples if n in truth]
+    means = {n: np.asarray(samples[n]).mean(0) for n in names}
+    A = np.stack([np.asarray(truth[n])[:2] for n in names])
+    B = np.stack([means[n][:2] for n in names])
+    R, c, t = kabsch_umeyama(A, B)
+    aligned = (c * (R @ B.T)).T + t
+    mah = []
+    for n in names:
+        s = np.asarray(samples[n])[:, :2]
+        d = np.asarray(truth[n])[:2] - s.mean(0)
+        mah.append(float(d @ np.linalg.solve(
+            np.cov(s.T) + 1e-9 * np.eye(2), d)))
+    common = [n for n in names if n in inc_est]
+    Rg, tg = rigid_gauge_transform(
+        np.stack([np.asarray(inc_est[n])[:2] for n in common]),
+        np.stack([means[n][:2] for n in common]))
+    anchored = (Rg @ B.T).T + tg
+    return dict(
+        raw=float(np.sqrt(((A - B) ** 2).sum(1).mean())),
+        aligned=float(np.sqrt(((A - aligned) ** 2).sum(1).mean())),
+        anchored=float(np.sqrt(((A - anchored) ** 2).sum(1).mean())),
+        incremental_map=point_errors(inc_est, truth)[0],
+        floor=point_errors(floor_est, truth)[0],
+        coverage=float(np.mean(np.asarray(mah) <= 5.99)))
+
+
+def run_manhattan(solver, floor, batches, device, truth) -> tuple:
+    """The Manhattan-scale runner's loop (:210-229) on solvers of either
+    package: each step the flow solve, then the incremental MAP updated
+    and warm-solved (its time takes in the ring scoring of new
+    landmarks); at the end the read-out of ``scale_metrics`` and the
+    truth-initialised floor on the same MAP object.  ``truth`` is keyed by
+    the package's variables.  Returns (per-step timings with "floor_s",
+    "floor_iters", "floor_nll", the metrics, last step's host samples)."""
+    def step_floor(ns, fs):
+        t0 = time.perf_counter()
+        floor.update(ns, fs)
+        floor.solve()
+        return {"floor_s": time.perf_counter() - t0,
+                "floor_iters": floor.last_iterations,
+                "floor_nll": floor.last_nll}
+
+    steps, per_step = run_incremental(solver, batches, device, step_floor)
+    by_name = {str(v.name): t for v, t in truth.items()}
+    inc_est = {str(v.name): np.array(x) for v, x in floor.results().items()}
+    floor_est = floor_from_truth(floor, truth)["est"]
+    metrics = scale_metrics(per_step[-1], by_name, inc_est,
+                            {str(v.name): x for v, x in floor_est.items()})
+    return steps, metrics, per_step[-1]
+
+
+def solve_manhattan(device, steps: int = MANHATTAN_STEPS, **overrides):
+    """The Manhattan-scale smoke by the port (``run_manhattan``) at the
+    runner's configuration.  Returns (per-step timings, metrics, last
+    step's host samples, solver)."""
+    from nfisam_tpu_torch.io import (graph_file_parser,
+                                     group_nodes_factors_incrementally)
+    from nfisam_tpu_torch.parallel import ParallelNFiSAM
+    from nfisam_tpu_torch.solver import (IncrementalGaussNewtonMAP,
+                                         NFiSAMArgs)
+
+    nodes, truth, factors = graph_file_parser(MANHATTAN_G8_FG)
+    batches = group_nodes_factors_incrementally(
+        nodes, factors, incremental_step=1)[:steps]
+    solver = ParallelNFiSAM(NFiSAMArgs(**{**MANHATTAN_ARGS, **overrides}),
+                            device=device)
+    timings, metrics, samples = run_manhattan(
+        solver, IncrementalGaussNewtonMAP(device=device), batches, device,
+        truth)
+    return timings, metrics, samples, solver
 
 
 def _ref_block(mat, order, name2dim, names):
@@ -949,15 +1228,13 @@ def plaza_phase(device):
         f"{sum(st['s'] for st in steps):.3f} s, ar_inverse launches "
         f"{launches}; bucket log {solver.bucket_log}")
     log_steps(steps)
-    log(f"plaza1 gate: max posterior-mean translation error {worst:.3f} m "
-        f"(<= {PLAZA_GATE_M}), RMSE {rmse:.3f} m over {len(samples)} "
-        f"variables")
+    log(f"plaza1: RMSE {rmse:.3f} m over {len(samples)} variables")
     check_finite(samples, "plaza1")
     if launches == 0:
         raise SystemExit("the plaza1 solve never launched the ar_inverse "
                          "kernel")
-    if not worst <= PLAZA_GATE_M:
-        raise SystemExit("plaza1 translation-error gate failed")
+    plaza_floor_gate("plaza1", worst,
+                     prefix_floor(PLAZA1_FG, PLAZA_STEPS, device))
     return solver
 
 
@@ -1150,16 +1427,152 @@ def plaza_ada_phase(device):
             log(f"  step {i}: DA true-association mean weight "
                 f"{snap[1]:.4f} over {snap[0]} factors, resolved "
                 f"(> {DA_RESOLVED}) {snap[2]:.4f}")
-    log(f"plaza1_ada0.2 gate: max posterior-mean translation error "
-        f"{worst:.3f} m (<= {PLAZA_GATE_M}), RMSE {rmse:.3f} m over "
-        f"{len(samples)} variables")
+    log(f"plaza1_ada0.2: RMSE {rmse:.3f} m over {len(samples)} variables")
     check_finite(samples, "plaza1_ada0.2")
     if launches == 0:
         raise SystemExit("the plaza1_ada0.2 solve never launched the "
                          "ar_inverse kernel")
-    if not worst <= PLAZA_GATE_M:
-        raise SystemExit("plaza1_ada0.2 translation-error gate failed")
+    plaza_floor_gate("plaza1_ada0.2", worst,
+                     prefix_floor(PLAZA_ADA_FG, PLAZA_ADA_STEPS, device))
     return solver
+
+
+def map_floor_phase(device) -> None:
+    """The MAP floors at full size (``MAP_CASES``), each held by
+    ``map_gate`` to the port's and the JAX package's CPU figures from the
+    same start."""
+    from nfisam_tpu_torch.io import graph_file_parser
+    from nfisam_tpu_torch.solver import (GaussNewtonMAP,
+                                         IncrementalGaussNewtonMAP)
+
+    for label, (path, kind) in MAP_CASES.items():
+        if kind == "laplace":
+            def new_solver(n, f):
+                return GaussNewtonMAP(n, f, device=device)
+        else:
+            def new_solver():
+                return IncrementalGaussNewtonMAP(device=device)
+        r = map_case(label, graph_file_parser, new_solver)
+        j_rmse, j_max, j_iters, j_nll = JAX_MAP_FLOORS[label]
+        (b_lo, b_hi), (n_lo, n_hi) = JAX_MAP_BANDS[label]
+        log(f"{label} ({os.path.basename(path)}): RMSE {r['rmse']:.4f} m, "
+            f"max error {r['max']:.4f} m, {r['iters']} LM iterations, final "
+            f"NLL {r['nll']:.4f}, {r['s']:.3f} s; the JAX package on the "
+            f"CPU: RMSE {j_rmse:.4f}, max {j_max:.4f}, {j_iters} "
+            f"iterations, NLL {j_nll:.4f}; in the port's dtype RMSE "
+            f"{b_lo:.4f}-{b_hi:.4f}, NLL {n_lo:.4f} to {n_hi:.4f} (gates: "
+            f"RMSE within {MAP_RMSE_TOL_M} of that band, NLL <= its top + "
+            f"{MAP_BAND_NLL_RTOL} x |NLL| and <= JAX's + {MAP_NLL_RTOL} x "
+            f"|NLL|)")
+        if not map_gate(label, r):
+            raise SystemExit(f"{label}: MAP floor gate failed")
+    time_map_products(device)
+
+
+def time_map_products(device, timer=None) -> float:
+    """The banked MAP's Hessian-vector products at plaza1's truth (D =
+    2342, in ``MAP_DTYPE``), each timed by ``timer(fn, warmup, repeats)``
+    (``time_cuda`` by default): one eager ``jvp`` of ``grad`` (the JAX
+    package's product), the sparse Hessian's assembly (once an LM
+    iteration), one product with it, and an LM step's 300-iteration CG on
+    it.  Fails unless the two products agree within 1e-6 of the largest
+    entry; returns that difference."""
+    from nfisam_tpu_torch.io import graph_file_parser
+    from nfisam_tpu_torch.solver import IncrementalGaussNewtonMAP
+    from nfisam_tpu_torch.solver import banked_joint as bj
+
+    timer = timer or time_cuda
+    nodes, truth, factors = graph_file_parser(PLAZA1_FG)
+    m = IncrementalGaussNewtonMAP(device=device)
+    m.update(nodes, factors)
+    banks = m.banks.to_device(device, bj.MAP_DTYPE)
+    x = torch.as_tensor(np.concatenate(
+        [np.asarray(truth[v], np.float64)[:v.dim] for v in m.vars]),
+        dtype=bj.MAP_DTYPE, device=device)
+    v = torch.ones_like(x)
+    grad = torch.func.grad(lambda y: bj._banked_nll(y, banks))
+    hessian = bj.SparseHessian(banks, m.dim)
+    H = hessian.at(x)
+    b = -grad(x)
+    jvp_ms = timer(lambda: torch.func.jvp(grad, (x,), (v,)), 2, 5)
+    at_ms = timer(lambda: hessian.at(x), 2, 5)
+    mv_ms = timer(lambda: torch.mv(H, v), 5, 30)
+    cg_ms = timer(lambda: bj.conjugate_gradient(
+        lambda p: torch.mv(H, p) + bj.MAP_INIT_DAMPING * p, b,
+        bj.MAP_CG_ITERS), 1, 3)
+    hv = torch.func.jvp(grad, (x,), (v,))[1]
+    diff = float((torch.mv(H, v) - hv).abs().max() / hv.abs().max())
+    log(f"banked MAP products at plaza1's truth (D = {m.dim}, "
+        f"{bj.MAP_DTYPE}): eager jvp of grad {jvp_ms:.3f} ms a product; "
+        f"sparse Hessian assembly {at_ms:.3f} ms, a product with it "
+        f"{mv_ms:.4f} ms, {bj.MAP_CG_ITERS}-iteration CG on it "
+        f"{cg_ms:.3f} ms; max |difference| of the products {diff:.3e} of "
+        f"the largest entry")
+    if not diff <= 1e-6:
+        raise SystemExit("the sparse Hessian disagrees with jvp of grad")
+    return diff
+
+
+def map_gate(label: str, r: dict) -> bool:
+    """A MAP case's result against the JAX package's CPU figures (the
+    gates above ``MAP_RMSE_TOL_M``)."""
+    j_nll = JAX_MAP_FLOORS[label][3]
+    (lo, hi), (_, n_hi) = JAX_MAP_BANDS[label]
+    rmse, nll = r["rmse"], r["nll"]
+    return bool(np.isfinite(nll) and
+                lo - MAP_RMSE_TOL_M <= rmse <= hi + MAP_RMSE_TOL_M and
+                nll <= n_hi + MAP_BAND_NLL_RTOL * abs(n_hi) and
+                nll <= j_nll + MAP_NLL_RTOL * abs(j_nll))
+
+
+def log_manhattan_steps(steps) -> None:
+    for i, st in enumerate(steps):
+        dims: dict = {}
+        for d, _, b in st["buckets"]:
+            dims[d] = dims.get(d, 0) + b
+        log(f"  step {i}: wall {st['s']:.3f} s (surgery "
+            f"{st['surgery_s']:.4f}, fit {st['fit_s']:.3f}, posterior "
+            f"{st['posterior_s']:.4f}), floor {st['floor_s']:.4f} s "
+            f"({st['floor_iters']} LM iterations, NLL "
+            f"{st['floor_nll']:.4f}); ar_inverse launches {st['launches']}; "
+            f"cliques trained by padded dim {dims}")
+
+
+def manhattan_phase(device):
+    """The Manhattan-scale smoke (``solve_manhattan``), its kernel launches
+    counted; the runner's read-out and its accuracy gate.  Returns the
+    solver."""
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+
+    ar_inverse_kernel.launches = 0
+    t0 = time.perf_counter()
+    steps, m, samples, solver = solve_manhattan(device)
+    total = time.perf_counter() - t0
+    launches = ar_inverse_kernel.launches
+    log(f"manhattan g8 first {MANHATTAN_STEPS} steps, ParallelNFiSAM "
+        f"(ccolamd) + IncrementalGaussNewtonMAP: total {total:.3f} s, "
+        f"ar_inverse launches {launches}; "
+        f"{len(solver.physical_bayes_tree.clique_nodes)} cliques; repair "
+        f"events {len(solver.mode_repair_log)} {solver.mode_repair_log}")
+    log_manhattan_steps(steps)
+    log(f"manhattan g8: raw translation RMSE {m['raw']:.4f} m (<= "
+        f"{MANHATTAN_RAW_GATE_M}), Kabsch-aligned {m['aligned']:.4f} m, "
+        f"anchored {m['anchored']:.4f} m (<= {MANHATTAN_ANCHORED_FACTOR} x "
+        f"incremental MAP {m['incremental_map']:.4f} m), truth-initialised "
+        f"floor {m['floor']:.4f} m, 95% coverage {m['coverage']:.4f}")
+    check_finite(samples, "manhattan g8")
+    if launches == 0:
+        raise SystemExit("the manhattan solve never launched the "
+                         "ar_inverse kernel")
+    if not manhattan_gate(m):
+        raise SystemExit("manhattan accuracy gate failed")
+    return solver
+
+
+def manhattan_gate(m: dict) -> bool:
+    """The runner's accuracy gate on ``scale_metrics``' read-out."""
+    return bool(m["raw"] <= MANHATTAN_RAW_GATE_M and m["anchored"] <=
+                MANHATTAN_ANCHORED_FACTOR * m["incremental_map"])
 
 
 def main() -> int:
@@ -1223,6 +1636,10 @@ def main() -> int:
     elapsed()
     plaza_ada_solver = plaza_ada_phase(device)
     elapsed()
+    map_floor_phase(device)
+    elapsed()
+    manhattan_solver = manhattan_phase(device)
+    elapsed()
 
     finals = [("case1 NFiSAM", seq_solver),
               ("case1 ParallelNFiSAM", par_solver),
@@ -1235,6 +1652,7 @@ def main() -> int:
     finals += [(f"case1_da seed {seed}", solver)
                for seed, solver in zip(DA_SEEDS, da_solvers)]
     finals.append(("plaza1_ada0.2", plaza_ada_solver))
+    finals.append(("manhattan g8", manhattan_solver))
     for label, solver in finals:
         rel, fused_s, walk_s = fused_vs_per_clique(solver)
         log(f"{label}: fused pass vs per-clique walk on the final state, "

@@ -3,8 +3,9 @@
 The port's counterpart of ``nfisam_tpu/graph/factor_graph.py``: symbolic
 elimination with fill-in, Bayes-tree construction and subgraph
 extraction.  The graph never touches device memory; it only decides which
-cliques are simulated, trained and sampled.  Orderings: ``natural`` and
-``pose_first``; ``ccolamd`` is not ported yet.
+cliques are simulated, trained and sampled.  Orderings: ``natural``,
+``pose_first`` and ``ccolamd`` (constrained minimum degree,
+``ordering.py``).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Dict, List, Optional, Set
 from ..core.variables import Variable, VariableType
 from ..factors.factors import Factor, ImplicitPriorFactor, UndefinedFactor
 from .bayes_tree import BayesTree, CliqueNode
+from .ordering import constrained_min_degree_ordering
 
 
 class FactorGraph:
@@ -74,18 +76,23 @@ class FactorGraph:
     def bayes_net_parents(self, var: Variable) -> Set[Variable]:
         return self._bayes_net_parents[var]
 
-    def analyze_elimination_ordering(self, method: str = "pose_first"
-                                     ) -> List[Variable]:
+    def analyze_elimination_ordering(
+            self, method: str = "pose_first",
+            last_vars: Optional[List[Variable]] = None) -> List[Variable]:
         """Elimination ordering by ``method`` (reference
-        ``analyze_elimination_ordering`` FactorGraph.py:106)."""
+        ``analyze_elimination_ordering`` FactorGraph.py:106).  ``ccolamd``
+        eliminates ``last_vars`` last: by default the newest pose."""
         if method == "natural":
             return sorted(self._vars)
         if method == "pose_first":
             return pose_first_ordering(self._vars)
         if method == "ccolamd":
-            raise NotImplementedError(
-                "ccolamd ordering is not ported yet; use pose_first or "
-                "natural")
+            if not last_vars:
+                poses = [v for v in self._vars
+                         if v.type == VariableType.Pose]
+                last_vars = [poses[-1]] if poses else []
+            return constrained_min_degree_ordering(
+                self._vars, self._var_neighbors, last_vars)
         raise ValueError(f"Unknown ordering method {method}")
 
     def build_bayes_tree(self, ordering: List[Variable]) -> BayesTree:

@@ -1,2 +1,3 @@
 from .simulation import (SimulationBasedSampler, SimulationSchedule,
                          compile_schedule, execute_schedule)
+from .joint import JointFactor, StructuredJointFactor

@@ -3,3 +3,5 @@ from .nfisam import (FlowModelAdapter, FlowsPriorFactor, NFiSAM, NFiSAMArgs,
 from .solver import (CliqueSeparatorFactor, ConditionalSampler,
                      FactorGraphSolver, SolverArgs)
 from .posterior_pass import LazySamples, fused_sample_posterior
+from .banked_joint import FactorBanks, IncrementalGaussNewtonMAP
+from .map_solver import GaussNewtonMAP

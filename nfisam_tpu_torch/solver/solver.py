@@ -48,7 +48,7 @@ MODE_REPAIR_COOLDOWN = 10
 
 @dataclass
 class SolverArgs:
-    elimination_method: str = "natural"      # natural | pose_first
+    elimination_method: str = "natural"  # natural | pose_first | ccolamd
     posterior_sample_num: int = 500
     local_sample_num: int = 500
     seed: int = 0
@@ -75,10 +75,11 @@ class FactorGraphSolver:
     """Incremental solver; density modeling is subclass policy."""
 
     def __init__(self, args: SolverArgs, device=None):
-        if args.elimination_method not in ("natural", "pose_first"):
+        if args.elimination_method not in ("natural", "pose_first",
+                                           "ccolamd"):
             raise NotImplementedError(
                 f"elimination method {args.elimination_method!r} is not "
-                f"ported yet; use 'pose_first' or 'natural'")
+                f"ported; use 'pose_first', 'natural' or 'ccolamd'")
         self._args = args
         self.device = resolve_device(device)
         self._physical_graph = FactorGraph()
@@ -134,11 +135,26 @@ class FactorGraphSolver:
 
     # ------------------------------------------------------------ ordering
     def generate_ordering(self) -> None:
+        """The elimination ordering over the physical graph and the new
+        nodes.  ``ccolamd`` keeps the previous ordering's variables that
+        left the working graph first (their cliques are kept), then orders
+        the working graph by constrained minimum degree with its newest
+        pose last."""
+        method = self._args.elimination_method
         natural = self._physical_graph.vars + self._new_nodes
-        if self._args.elimination_method == "natural":
+        if method == "natural":
             self._elimination_ordering = natural
-        else:
+        elif method == "pose_first":
             self._elimination_ordering = pose_first_ordering(natural)
+        else:
+            working = set(self._working_graph.vars)
+            fixed = [v for v in self._elimination_ordering
+                     if v not in working]
+            poses = [v for v in self._working_graph.vars
+                     if v.type == VariableType.Pose]
+            self._elimination_ordering = fixed + \
+                self._working_graph.analyze_elimination_ordering(
+                    "ccolamd", last_vars=[poses[-1]] if poses else None)
         self._reverse_ordering_map = {
             v: i for i, v in enumerate(self._elimination_ordering[::-1])}
 

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
 paths around them (the fused posterior pass against the per-clique walk,
-the batched trainer), on a card.  This file imports neither JAX nor the
+the batched trainer, the MAP solvers against themselves on the CPU), on
+a card.  This file imports neither JAX nor the
 JAX package, so it also runs
 where JAX is not installed.  Every test carries the ``cuda`` marker and
 skips without a card.  On a card: ``python -m pytest --noconftest -p
@@ -174,3 +175,57 @@ def test_cuda_batched_trainer_follows_single_fits(cuda):
                                    loss1[:5].cpu().numpy(), rtol=1e-4)
         assert 40 < t[b] <= 120
         assert float(loss[b, t[b] - 1]) < float(loss[b, 0])
+
+
+def test_cuda_banked_floor_matches_the_cpu(cuda):
+    """The banked NLL (rtol 1e-5) and its gradient (1e-4 of the largest
+    entry, the CPU parity tests' tolerance) on the card and on the CPU at
+    plaza1's first two steps' truth moved by 1-5 cm and a few mrad (at the
+    truth itself the gradient is a float32 rounding of tight priors times
+    their precision), and the truth-initialised floor's final NLL within
+    1e-4 relative."""
+    from nfisam_tpu_torch.io import (graph_file_parser,
+                                     group_nodes_factors_incrementally)
+    from nfisam_tpu_torch.solver import IncrementalGaussNewtonMAP
+    from nfisam_tpu_torch.solver.banked_joint import _banked_nll
+
+    nodes, truth, factors = graph_file_parser(chip_smoke.PLAZA1_FG)
+    batches = group_nodes_factors_incrementally(nodes, factors, 5)[:2]
+    vals = {}
+    for dev in ("cpu", cuda):
+        m = IncrementalGaussNewtonMAP(device=dev)
+        m.update([n for ns, _ in batches for n in ns],
+                 [f for _, fs in batches for f in fs])
+        rng = np.random.default_rng(3)
+        x = torch.as_tensor(np.concatenate(
+            [np.asarray(truth[v], np.float64)[:v.dim] +
+             rng.normal(size=v.dim) * np.array([0.03, 0.03, 0.003])[:v.dim]
+             for v in m.vars]).astype(np.float32), device=dev)
+        banks = m.banks.to_device(dev)
+        g = torch.func.grad(lambda y: _banked_nll(y, banks))(x)
+        vals[str(dev)] = (float(_banked_nll(x, banks)), g.cpu().numpy(),
+                          chip_smoke.floor_from_truth(m, truth)["nll"])
+    (n_c, g_c, f_c), (n_g, g_g, f_g) = vals["cpu"], vals[str(cuda)]
+    assert abs(n_g - n_c) <= 1e-5 * abs(n_c), (n_g, n_c)
+    np.testing.assert_allclose(g_g, g_c, rtol=1e-4,
+                               atol=1e-4 * np.abs(g_c).max())
+    assert abs(f_g - f_c) <= 1e-4 * abs(f_c), (f_g, f_c)
+
+
+def test_cuda_laplace_map_matches_the_cpu(cuda):
+    """GaussNewtonMAP on case1 from the truth on the card and the CPU: the
+    MAP within 1e-4, the Laplace covariance rtol 1e-3."""
+    from nfisam_tpu_torch.io import graph_file_parser
+    from nfisam_tpu_torch.solver import GaussNewtonMAP
+
+    nodes, truth, factors = graph_file_parser(chip_smoke.CASE1_FG)
+    out = []
+    for dev in ("cpu", cuda):
+        m = GaussNewtonMAP(nodes, factors, device=dev)
+        x0 = np.concatenate([np.asarray(truth[v], np.float32)[:v.dim]
+                             for v in m.joint.vars])
+        out.append(m.solve(x0=x0))
+    (xc, cc, _, _), (xg, cg, _, _) = out
+    np.testing.assert_allclose(xg, xc, atol=1e-4)
+    np.testing.assert_allclose(cg, cc, rtol=1e-3,
+                               atol=1e-3 * np.abs(cc).max())

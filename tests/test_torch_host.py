@@ -150,5 +150,26 @@ def test_pose_first_bayes_trees_match_jax_at_every_case1_step():
 
 
 def test_ccolamd_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        FactorGraph().analyze_elimination_ordering("ccolamd")
+    """Named while ccolamd raised here.  It is ported now
+    (``graph/ordering.py``): an empty graph orders to [], case1 to the JAX
+    package's ordering with the newest pose last
+    (``test_torch_ordering.py`` holds it on more graphs), and an unknown
+    method still raises."""
+    assert FactorGraph().analyze_elimination_ordering("ccolamd") == []
+    nodes, _, factors = graph_file_parser(CASE1)
+    j_nodes, _, j_factors = j_parse(CASE1, "fg")
+    ours, theirs = FactorGraph(), JFactorGraph()
+    for v in nodes:
+        ours.add_node(v)
+    for v in j_nodes:
+        theirs.add_node(v)
+    for f in factors:
+        ours.add_factor(f)
+    for f in j_factors:
+        theirs.add_factor(f)
+    order = [str(v.name) for v in ours.analyze_elimination_ordering("ccolamd")]
+    assert order == [str(v.name) for v in
+                     theirs.analyze_elimination_ordering("ccolamd")]
+    assert order[-1] == "X5"
+    with pytest.raises(ValueError):
+        FactorGraph().analyze_elimination_ordering("amd")

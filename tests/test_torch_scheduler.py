@@ -201,9 +201,11 @@ def test_multi_robot_buckets_reach_four_in_both():
 
 def test_chip_smoke_paths_run_on_cpu_at_small_size():
     """``chip_smoke.py``'s plaza1, robots, mode-repair, separator-trap,
-    case1_da and plaza1_ada0.2 paths, and its fused-pass check, driven on
-    the CPU at a small size: one plaza1 step, two robots of three poses,
-    two plaza1_ada0.2 steps, 30 Adam iterations."""
+    case1_da, plaza1_ada0.2, MAP-floor and Manhattan-scale paths, and its
+    fused-pass check, driven on the CPU at a small size: one plaza1 step,
+    two robots of three poses, two plaza1_ada0.2 steps, 30 Adam
+    iterations; the prefixes' floors, the full g16 floor, case1's
+    Laplace MAP and the MAP's product timing; three Manhattan g8 steps."""
     small = dict(local_sample_num=200, flow_iterations=30,
                  posterior_sample_num=300)
     steps, samples, truth, solver = chip_smoke.solve_plaza("cpu", steps=1,
@@ -249,6 +251,42 @@ def test_chip_smoke_paths_run_on_cpu_at_small_size():
     assert count == 1 and 0.0 <= resolved <= 1.0 and 0.0 < mean_w < 1.0
     assert np.isfinite(chip_smoke.translation_errors(per_step[1],
                                                      truth)).all()
+    assert chip_smoke.fused_vs_per_clique(solver)[0] == 0.0
+    # the MAP floors: a prefix's floor and its divergence gate, the full
+    # g16 floor against the JAX figure's gate, case1's Laplace MAP
+    from nfisam_tpu_torch.solver import (GaussNewtonMAP,
+                                         IncrementalGaussNewtonMAP)
+    floor = chip_smoke.prefix_floor(chip_smoke.PLAZA_ADA_FG, 1, "cpu")
+    assert floor["iters"] >= 1 and 0.0 < floor["rmse"] < floor["max"]
+    bound = max(3.0 * chip_smoke.JAX_PREFIX_FLOOR_MAX["plaza1_ada0.2"],
+                15.0)
+    chip_smoke.plaza_floor_gate("plaza1_ada0.2", bound - 0.01, floor)
+    with pytest.raises(SystemExit):
+        chip_smoke.plaza_floor_gate("plaza1_ada0.2", bound + 0.01, floor)
+    g16 = "manhattan g16 truth floor"
+    r = chip_smoke.map_case(g16, graph_file_parser,
+                            lambda: IncrementalGaussNewtonMAP(device="cpu"))
+    assert chip_smoke.map_gate(g16, r)
+    assert not chip_smoke.map_gate(g16, {**r, "rmse": r["rmse"] + 0.02})
+    assert not chip_smoke.map_gate(g16, {**r, "nll": r["nll"] + 0.1})
+    nodes, truth, factors = graph_file_parser(chip_smoke.CASE1_FG)
+    r = chip_smoke.laplace_from_truth(
+        GaussNewtonMAP(nodes, factors, device="cpu"), truth)
+    assert r["iters"] == 100 and r["rmse"] < 1e-3
+
+    def once(fn, warmup, repeats):      # a host call for the CUDA events
+        fn()
+        return 0.0
+
+    assert chip_smoke.time_map_products("cpu", timer=once) <= 1e-6
+    # three Manhattan g8 steps by ccolamd, the MAP solved each step
+    steps, m, samples, solver = chip_smoke.solve_manhattan("cpu", steps=3,
+                                                           **small)
+    assert [st["floor_iters"] for st in steps][0] >= 1
+    assert all(d == 16 for st in steps for d, _, _ in st["buckets"])
+    assert np.isfinite(list(m.values())).all()
+    assert chip_smoke.manhattan_gate(m) == (
+        m["raw"] <= 40.0 and m["anchored"] <= 2.0 * m["incremental_map"])
     assert chip_smoke.fused_vs_per_clique(solver)[0] == 0.0
 
 

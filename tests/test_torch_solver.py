@@ -198,7 +198,12 @@ def test_port_imports_no_jax_and_no_jax_package():
             "nfisam_tpu_torch.eval, nfisam_tpu_torch.train, "
             "nfisam_tpu_torch.samplers, nfisam_tpu_torch.utils.cuda_build, "
             "nfisam_tpu_torch.parallel, "
-            "nfisam_tpu_torch.solver.posterior_pass\n"
+            "nfisam_tpu_torch.solver.posterior_pass, "
+            "nfisam_tpu_torch.solver.banked_joint, "
+            "nfisam_tpu_torch.solver.map_solver, "
+            "nfisam_tpu_torch.samplers.joint, "
+            "nfisam_tpu_torch.graph.ordering, "
+            "nfisam_tpu_torch.eval.metrics\n"
             "from nfisam_tpu_torch.train import fit_flows_batched\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m in ('jax', 'optax', "
@@ -220,7 +225,7 @@ def test_solver_without_device_raises_on_a_cpu_only_host():
 
 @pytest.mark.parametrize("bad", [dict(elimination_method="minimum_degree"),
                                  dict(checkpoint_dir="ckpt"),
-                                 dict(elimination_method="ccolamd"),
+                                 dict(elimination_method="colamd"),
                                  dict(flow_type="RealNVP")])
 def test_unported_options_raise(bad):
     with pytest.raises(NotImplementedError):
