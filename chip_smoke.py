@@ -82,9 +82,37 @@ of JAX or of the JAX package, and exits non-zero if any phase fails:
 14. on each of those solvers' final state, the fused pass against the
    per-clique walk from the same key stream: max |diff| <= 1e-6 of the
    samples' scale, and both passes' times;
+15. (inside 12) plaza1's truth floor solved twice in one process: both
+   solves must give the same RMSE and final NLL bit for bit, and the
+   product timing sets the fixed-order CSR product beside cuSPARSE's;
+16. the eight-node R^2 displacement chain of the JAX package's
+   ``examples/toy_examples/r2_relative_eight_nodes.py`` (natural
+   ordering, K=8, 1500 training samples, <= 800 iterations, lr 0.03,
+   1000 draws) by ``NFiSAM`` for seeds 0-2, against its exact Gaussian
+   posterior (``gaussian_displacement_graph_moments``); gates: every
+   variable's sample-mean error and the relative error of its sample
+   variances within 2x the JAX package's worst over the same seeds on
+   the CPU;
+17. case1 by ``ParallelNFiSAM`` at the bench configuration, seed 1, from
+   a copy of the checkpoint store the JAX package wrote on the CPU
+   (``tests/torch_data/case1_jax_ckpt``): gates: no clique trained,
+   kernel launches, and the mean joint MMD over steps 0-5 <= 2x the
+   reference run1's, so the card's kernel draws through the JAX
+   package's own flows;
+18. the command line at full width: ``nfisam_tpu_torch.cli.main(["solve",
+   ...])`` on lawnmower_4x4 (16 poses, 3 landmarks, 6 ambiguous ranges)
+   at ``scripts/manhattan_run.py``'s configuration with a checkpoint
+   directory, in this process; the run read back from its artifacts
+   (step times, translation and landmark RMSE against the ``.fg``'s
+   truth, the ambiguous factors' weights); gate: translation RMSE <=
+   1.25x the worst of the JAX CLI's own runs over seeds 0-4 on the CPU.
+   Then ``solve`` again from the same checkpoint directory (gates: no
+   clique trained, every posterior mean within 1.0 m of the first run's),
+   and ``python -m nfisam_tpu_torch baseline`` and ``mmd`` in
+   subprocesses, which must exit 0;
 
 Each solve's kernel launches are counted from 0 just before it and read
-just after.  The output ends with one ``{"kernels": [...]}`` JSON line,
+just after; the kernel line's ``launches`` are lawnmower_4x4's (18).  The output ends with one ``{"kernels": [...]}`` JSON line,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -121,7 +149,9 @@ BENCH_ARGS = dict(posterior_sample_num=1000, local_sample_num=2000,
 # (scripts/plaza_family_run.py: 5 poses a step, default w=50/tol=0.01
 # plateau stop, seed 0), cut to its first PLAZA_STEPS incremental steps
 # (5 of 156: with the data-association phases the whole run must stay
-# inside its time limit on a slow host)
+# inside its time limit on a slow host; no fewer, since after 4 steps two
+# landmarks still sit on their range rings, and the JAX package's
+# posterior misses L3 by 78 m there too)
 PLAZA1_FG = os.path.join(HERE, "data", "plaza1_factor_graph.fg")
 PLAZA_ARGS = dict(posterior_sample_num=1000, local_sample_num=2000,
                   flow_iterations=2000, num_knots=9, learning_rate=0.01,
@@ -210,6 +240,8 @@ MAP_CASES = {
     "manhattan g16 truth floor": (MANHATTAN_SCALE_FG, "banked"),
     "manhattan_plaza Laplace MAP": (MANHATTAN_PLAZA_FG, "laplace"),
 }
+# the case solved twice in one process, which must give the same bits
+REPEAT_MAP_CASE = "plaza1 truth floor"
 # each case's figures from the JAX package on the CPU (``JAX_PLATFORMS=cpu
 # python tests/test_torch_map.py``): its own solve from the truth (RMSE m,
 # max error m, LM iterations, final NLL), and the band ((RMSE lo, hi), (NLL
@@ -247,8 +279,8 @@ MAP_NLL_RTOL = 1e-5
 # and factors: its max error (m) on the CPU (same script), which bounds the
 # divergence gate as in plaza_family_run.py.  Its float32 solve stops at
 # its 15-iteration cap near the truth start; the port's float64 floor
-# (printed beside) goes on farther (plaza1 max 3.31 m on the CPU, JAX's
-# own in float64 2.15 m), so it would loosen the bound
+# (printed beside) goes on farther (plaza1 max 3.2-3.3 m, JAX's own in
+# float64 2.15 m), so it would loosen the bound
 JAX_PREFIX_FLOOR_MAX = {"plaza1": 0.9797327337812113,
                         "plaza1_ada0.2": 1.006755522254178}
 # the Manhattan-scale runner's smoke (scripts/manhattan_scale_run.py --grid
@@ -270,6 +302,46 @@ MANHATTAN_STEPS = 11
 # raw RMSE
 MANHATTAN_RAW_GATE_M = 40.0
 MANHATTAN_ANCHORED_FACTOR = 2.0
+# the eight-node R^2 chain (examples/toy_examples/r2_relative_eight_nodes.py)
+# at that example's configuration, seeds 0-2; its gate is 2x the JAX
+# package's worst over the same seeds on the CPU (``JAX_PLATFORMS=cpu
+# python tests/test_torch_oracles.py``): the sample-mean error (m) and the
+# relative error of a sample variance
+EIGHT_NODE_ARGS = dict(posterior_sample_num=1000, local_sample_num=1500,
+                       flow_iterations=800, num_knots=8, learning_rate=0.03,
+                       elimination_method="natural")
+EIGHT_NODE_SEEDS = (0, 1, 2)
+JAX_EIGHT_NODE_WORST = (0.07326130467005305, 0.15221419708862693)
+EIGHT_NODE_GATE_FACTOR = 2.0
+# the checkpoint store the JAX package wrote on the CPU of case1 at
+# BENCH_ARGS, seed 1 (``JAX_PLATFORMS=cpu python
+# tests/test_torch_checkpoint.py``)
+CASE1_JAX_CKPT = os.path.join(HERE, "tests", "torch_data",
+                              "case1_jax_ckpt")
+# lawnmower_4x4 through the command line at scripts/manhattan_run.py's
+# configuration; gate: translation RMSE <= 1.25x the worst of the JAX
+# CLI's own runs of the same command over seeds 0-4 on the CPU
+# (``JAX_PLATFORMS=cpu python tests/test_torch_cli.py``), with the JAX
+# package's TPU figure (BENCHMARKS.md:43, median [min, max] over 5 seeds)
+# printed beside it; a rerun from the same checkpoint directory trains
+# nothing and moves no posterior mean by more than 1.0 m
+# (tests/test_checkpoint.py's bound)
+LAWNMOWER_FG = os.path.join(HERE, "data", "lawnmower_4x4_factor_graph.fg")
+JAX_LAWNMOWER_WORST = 5.256669996679982
+LAWNMOWER_GATE_FACTOR = 1.25
+TPU_LAWNMOWER_RMSE = "3.28 [1.65, 4.21]"
+RERUN_MEAN_GATE_M = 1.0
+
+
+def lawnmower_argv(seed: int, out: str, ckpt: str = None) -> list:
+    """``solve`` of lawnmower_4x4 at scripts/manhattan_run.py:51-54's
+    configuration, for either package's command line."""
+    argv = ["solve", "--fg", LAWNMOWER_FG, "--out", out,
+            "--incremental-step", "1", "--knots", "9", "--iters", "2000",
+            "--train-samples", "2000", "--posterior-samples", "1000",
+            "--lr", "0.02", "--hidden", "8", "--elimination", "pose_first",
+            "--parallel", "--seed", str(seed)]
+    return argv + (["--checkpoint-dir", ckpt] if ckpt else [])
 
 
 def log(msg: str) -> None:
@@ -1466,6 +1538,15 @@ def map_floor_phase(device) -> None:
             f"|NLL|)")
         if not map_gate(label, r):
             raise SystemExit(f"{label}: MAP floor gate failed")
+        if label == REPEAT_MAP_CASE:
+            again = map_case(label, graph_file_parser, new_solver)
+            log(f"{label} again in this process: RMSE {again['rmse']!r} m, "
+                f"NLL {again['nll']!r} (first {r['rmse']!r}, {r['nll']!r}); "
+                f"{again['s'] / again['iters']:.4f} s an LM iteration "
+                f"(first {r['s'] / r['iters']:.4f})")
+            if (again["rmse"], again["nll"]) != (r["rmse"], r["nll"]):
+                raise SystemExit(f"{label}: two solves in one process "
+                                 f"differ")
     time_map_products(device)
 
 
@@ -1475,8 +1556,10 @@ def time_map_products(device, timer=None) -> float:
     (``time_cuda`` by default): one eager ``jvp`` of ``grad`` (the JAX
     package's product), the sparse Hessian's assembly (once an LM
     iteration), one product with it, and an LM step's 300-iteration CG on
-    it.  Fails unless the two products agree within 1e-6 of the largest
-    entry; returns that difference."""
+    it, each product both as the solver takes it (``SparseHessian.mv``,
+    summed in a fixed order) and as cuSPARSE's ``torch.mv`` does.  Fails
+    unless the products agree within 1e-6 of the largest entry; returns
+    the largest difference."""
     from nfisam_tpu_torch.io import graph_file_parser
     from nfisam_tpu_torch.solver import IncrementalGaussNewtonMAP
     from nfisam_tpu_torch.solver import banked_joint as bj
@@ -1496,18 +1579,24 @@ def time_map_products(device, timer=None) -> float:
     b = -grad(x)
     jvp_ms = timer(lambda: torch.func.jvp(grad, (x,), (v,)), 2, 5)
     at_ms = timer(lambda: hessian.at(x), 2, 5)
-    mv_ms = timer(lambda: torch.mv(H, v), 5, 30)
+    mv_ms = timer(lambda: hessian.mv(H, v), 5, 30)
+    lib_ms = timer(lambda: torch.mv(H, v), 5, 30)
     cg_ms = timer(lambda: bj.conjugate_gradient(
+        lambda p: hessian.mv(H, p) + bj.MAP_INIT_DAMPING * p, b,
+        bj.MAP_CG_ITERS), 1, 3)
+    lib_cg_ms = timer(lambda: bj.conjugate_gradient(
         lambda p: torch.mv(H, p) + bj.MAP_INIT_DAMPING * p, b,
         bj.MAP_CG_ITERS), 1, 3)
     hv = torch.func.jvp(grad, (x,), (v,))[1]
-    diff = float((torch.mv(H, v) - hv).abs().max() / hv.abs().max())
+    diff = max(float((hessian.mv(H, v) - hv).abs().max() / hv.abs().max()),
+               float((torch.mv(H, v) - hv).abs().max() / hv.abs().max()))
     log(f"banked MAP products at plaza1's truth (D = {m.dim}, "
-        f"{bj.MAP_DTYPE}): eager jvp of grad {jvp_ms:.3f} ms a product; "
-        f"sparse Hessian assembly {at_ms:.3f} ms, a product with it "
-        f"{mv_ms:.4f} ms, {bj.MAP_CG_ITERS}-iteration CG on it "
-        f"{cg_ms:.3f} ms; max |difference| of the products {diff:.3e} of "
-        f"the largest entry")
+        f"{H.values().numel()} stored entries, {bj.MAP_DTYPE}): eager jvp "
+        f"of grad {jvp_ms:.3f} ms a product; sparse Hessian assembly "
+        f"{at_ms:.3f} ms, a fixed-order product with it {mv_ms:.4f} ms "
+        f"(cuSPARSE's torch.mv {lib_ms:.4f} ms), {bj.MAP_CG_ITERS}-iteration "
+        f"CG on it {cg_ms:.3f} ms (with torch.mv {lib_cg_ms:.3f} ms); max "
+        f"|difference| of the products {diff:.3e} of the largest entry")
     if not diff <= 1e-6:
         raise SystemExit("the sparse Hessian disagrees with jvp of grad")
     return diff
@@ -1575,6 +1664,265 @@ def manhattan_gate(m: dict) -> bool:
                 MANHATTAN_ANCHORED_FACTOR * m["incremental_map"])
 
 
+# --------------------------------------------------------------------------
+# this slice's paths: the eight-node oracle, case1 from the JAX package's
+# checkpoint store, lawnmower_4x4 through the command line
+# --------------------------------------------------------------------------
+def eight_node_graph(core, factors):
+    """The eight-node R^2 chain of ``examples/toy_examples/
+    r2_relative_eight_nodes.py`` in the package whose ``core`` and
+    ``factors`` are given: a Gaussian prior on X0 and displacements of 3 m,
+    alternately along x and y.  Returns (variables, factors, the closed
+    form's (variables, displacements, priors) arguments)."""
+    xs = [core.R2Variable(f"X{i}") for i in range(8)]
+    prior_cov = np.diag([0.09, 0.09])
+    odom_cov = np.diag([0.04, 0.04])
+    moves = [np.array([3.0, 0.0]) if i % 2 == 0 else np.array([0.0, 3.0])
+             for i in range(7)]
+    fs = [factors.UnaryR2GaussianPriorFactor(xs[0], np.zeros(2), prior_cov)]
+    fs += [factors.R2RelativeGaussianLikelihoodFactor(xs[i], xs[i + 1], mv,
+                                                      odom_cov)
+           for i, mv in enumerate(moves)]
+    oracle = (xs, {(xs[i], xs[i + 1]): (mv, odom_cov)
+                   for i, mv in enumerate(moves)},
+              {xs[0]: (np.zeros(2), prior_cov)})
+    return xs, fs, oracle
+
+
+def eight_node_errors(samples: dict, oracle) -> tuple:
+    """Per variable (in order): the sample mean's distance from the exact
+    posterior mean, and the largest relative error of a sample variance
+    against the exact one.  ``samples`` by variable name."""
+    from nfisam_tpu_torch.eval import gaussian_displacement_graph_moments
+
+    xs = oracle[0]
+    mean, cov = gaussian_displacement_graph_moments(*oracle)
+    mean_err, var_err = [], []
+    for i, v in enumerate(xs):
+        s = np.asarray(samples[str(v.name)], np.float64)
+        mean_err.append(float(np.linalg.norm(s.mean(0) -
+                                             mean[2 * i:2 * i + 2])))
+        var_err.append(float(np.max(np.abs(
+            np.var(s, axis=0, ddof=1) / np.diag(cov)[2 * i:2 * i + 2] -
+            1.0))))
+    return mean_err, var_err
+
+
+def solve_eight_nodes(seed: int, device, **overrides):
+    """The eight-node chain by ``NFiSAM`` in one step.  Returns
+    (timings, host samples, solver, closed-form arguments)."""
+    import nfisam_tpu_torch.core as core
+    import nfisam_tpu_torch.factors as factors
+    from nfisam_tpu_torch.solver import NFiSAM, NFiSAMArgs
+
+    xs, fs, oracle = eight_node_graph(core, factors)
+    solver = NFiSAM(NFiSAMArgs(**{**EIGHT_NODE_ARGS, **overrides,
+                                  "seed": seed}), device=device)
+    steps, per_step = run_incremental(solver, [(xs, fs)], device)
+    return steps, per_step[-1], solver, oracle
+
+
+def eight_node_phase(device):
+    """The eight-node oracle for every seed, each solve's launches
+    counted; gates against 2x the JAX package's worst.  Returns the last
+    seed's solver."""
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+
+    mean_gate = EIGHT_NODE_GATE_FACTOR * JAX_EIGHT_NODE_WORST[0]
+    var_gate = EIGHT_NODE_GATE_FACTOR * JAX_EIGHT_NODE_WORST[1]
+    solver = None
+    for seed in EIGHT_NODE_SEEDS:
+        ar_inverse_kernel.launches = 0
+        steps, samples, solver, oracle = solve_eight_nodes(seed, device)
+        launches = ar_inverse_kernel.launches
+        check_finite(samples, f"eight-node seed {seed}")
+        mean_err, var_err = eight_node_errors(samples, oracle)
+        log(f"eight-node R2 chain seed {seed}, NFiSAM: {steps[0]['s']:.3f} s "
+            f"(fit {steps[0]['fit_s']:.3f}, posterior "
+            f"{steps[0]['posterior_s']:.4f}), cliques trained "
+            f"{steps[0]['trained']}, Adam iterations {steps[0]['iters']}, "
+            f"ar_inverse launches {launches}; sample-mean error per "
+            f"variable {[round(e, 4) for e in mean_err]} m (<= {mean_gate:.4f}"
+            f" = {EIGHT_NODE_GATE_FACTOR} x the JAX package's worst "
+            f"{JAX_EIGHT_NODE_WORST[0]:.4f}), relative variance error "
+            f"{[round(e, 4) for e in var_err]} (<= {var_gate:.4f})")
+        if launches == 0:
+            raise SystemExit("the eight-node solve never launched the "
+                             "ar_inverse kernel")
+        if max(mean_err) > mean_gate or max(var_err) > var_gate:
+            raise SystemExit(f"eight-node seed {seed}: the posterior is "
+                             f"off its closed form")
+    return solver
+
+
+def case1_jax_checkpoint_phase(device, name2dim):
+    """case1 by ``ParallelNFiSAM`` from a copy of the JAX package's
+    checkpoint store: every clique loads, none trains, and the kernel
+    draws the posterior through the JAX package's flows.  Returns the
+    solver."""
+    import shutil
+    import tempfile
+
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        shutil.copytree(CASE1_JAX_CKPT, ckpt)
+        ar_inverse_kernel.launches = 0
+        total, steps, per_step, solver = solve_case1(
+            SEEDS[0], device, parallel=True, checkpoint_dir=ckpt)
+        launches = ar_inverse_kernel.launches
+    trained = sum(st["trained"] for st in steps)
+    for step, samples in enumerate(per_step):
+        check_finite(samples, f"case1 from the JAX store step {step}")
+    ours, ref, per = accuracy_gate(per_step, name2dim)
+    log(f"case1 from the JAX package's checkpoint store (seed {SEEDS[0]}), "
+        f"ParallelNFiSAM: total {total:.3f} s, cliques trained {trained}, "
+        f"ar_inverse launches {launches}; joint MMD {ours:.4f} (<= "
+        f"{MMD_GATE_FACTOR} x reference run1 {ref:.4f}), per step "
+        f"{[round(x, 4) for x in per]}")
+    log_steps(steps)
+    if trained:
+        raise SystemExit("case1 from the JAX store trained cliques")
+    if launches == 0:
+        raise SystemExit("case1 from the JAX store never launched the "
+                         "ar_inverse kernel")
+    if not ours <= MMD_GATE_FACTOR * ref:
+        raise SystemExit("case1 from the JAX store: accuracy gate failed")
+    return solver
+
+
+def run_rmse(run_dir: str, fg: str) -> dict:
+    """A ``solve`` run read back from its artifacts alone: the last step's
+    samples and ordering, the per-step times and the hypothesis weights.
+    Returns {"trans", "landmark" (RMSE m of the posterior means'
+    translation against the ``.fg``'s truth, all variables and landmarks
+    only), "means" {name: mean}, "step_s", "steps", "weights" {factor:
+    weights}, "trained" (cliques trained a step)}."""
+    from nfisam_tpu_torch.io import graph_file_parser
+
+    nodes, truth, _ = graph_file_parser(fg)
+    dims = {str(v.name): v.dim for v in nodes}
+    truth = {str(v.name): np.asarray(t) for v, t in truth.items()}
+    steps = sorted(int(f[4:]) for f in os.listdir(run_dir)
+                   if f.startswith("step") and f[4:].isdigit())
+    last = os.path.join(run_dir, f"step{steps[-1]}")
+    X = np.loadtxt(last, ndmin=2)
+    with open(last + "_ordering") as f:
+        names = f.read().split()
+    means, col = {}, 0
+    for n in names:
+        means[n] = X[:, col:col + dims[n]].mean(0)
+        col += dims[n]
+    errs = {n: float(np.linalg.norm(means[n][:2] - truth[n][:2]))
+            for n in names if n in truth}
+    lmk = [e for n, e in errs.items() if n.startswith("L")]
+    weights = {}
+    if os.path.exists(last + ".hypoweights"):
+        with open(last + ".hypoweights") as f:
+            for line in f:
+                name, w = line.strip().split(" : ")
+                weights[name] = [float(x) for x in w.split(",")]
+    trained = []
+    for i in steps:
+        with open(os.path.join(run_dir, f"step{i}_step_training_loss")) as f:
+            trained.append(len(json.loads(f.read())))
+    with open(os.path.join(run_dir, "step_timing")) as f:
+        step_s = [float(t) for t in f.read().split()]
+    return {"trans": float(np.sqrt(np.mean(np.square(list(errs.values()))))),
+            "landmark": float(np.sqrt(np.mean(np.square(lmk)))) if lmk
+            else float("nan"),
+            "means": means, "step_s": step_s, "steps": len(steps),
+            "weights": weights, "trained": trained}
+
+
+def solve_lawnmower(device, tmp: str, extra_argv=()) -> dict:
+    """lawnmower_4x4 through ``cli.main`` in this process (``extra_argv``
+    appended: a later flag wins), then again from the same checkpoint
+    directory, then ``baseline`` of the graph and ``mmd`` of the first
+    run's last step against its Laplace samples through ``python -m
+    nfisam_tpu_torch``.  Returns {"first", "rerun" (``run_rmse``), "wall"
+    (s), "launches" (the first run's), "moved" (the largest
+    posterior-mean move of the rerun, m), "commands" [(name, exit code,
+    seconds, last output line)]}."""
+    from nfisam_tpu_torch import cli
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+
+    out, ckpt = os.path.join(tmp, "runs"), os.path.join(tmp, "ckpt")
+    dev_args = [] if torch.device(device).type == "cuda" else \
+        ["--device", str(device)]
+    argv = lawnmower_argv(0, out, ckpt) + dev_args + list(extra_argv)
+    ar_inverse_kernel.launches = 0
+    t0 = time.perf_counter()
+    if cli.main(argv) != 0:
+        raise SystemExit("lawnmower_4x4: solve exited non-zero")
+    wall = time.perf_counter() - t0
+    launches = ar_inverse_kernel.launches
+    first = run_rmse(os.path.join(out, "run1"), LAWNMOWER_FG)
+    if cli.main(argv) != 0:
+        raise SystemExit("lawnmower_4x4 rerun: solve exited non-zero")
+    rerun = run_rmse(os.path.join(out, "run2"), LAWNMOWER_FG)
+    moved = max(float(np.linalg.norm(rerun["means"][n] - first["means"][n]))
+                for n in first["means"])
+    laplace = os.path.join(tmp, "laplace.txt")
+    last = os.path.join(out, "run1", f"step{first['steps'] - 1}")
+    commands = []
+    for args in (["baseline", "--fg", LAWNMOWER_FG, "--out", laplace] +
+                 dev_args, ["mmd", last, laplace]):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "nfisam_tpu_torch", *args], cwd=HERE,
+            capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+        commands.append((args[0], proc.returncode, time.perf_counter() - t0,
+                         (proc.stdout.strip().splitlines() or [""])[-1]))
+    return dict(first=first, rerun=rerun, wall=wall, launches=launches,
+                moved=moved, commands=commands)
+
+
+def lawnmower_phase(device) -> int:
+    """``solve_lawnmower`` at full width and its gates.  Returns the first
+    run's kernel launches."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        r = solve_lawnmower(device, tmp)
+    first, rerun = r["first"], r["rerun"]
+    bound = LAWNMOWER_GATE_FACTOR * JAX_LAWNMOWER_WORST
+    log(f"lawnmower_4x4 via cli.main solve (seed 0): {first['steps']} steps "
+        f"in {r['wall']:.3f} s, per step "
+        f"{[round(t, 3) for t in first['step_s']]} s, cliques trained per "
+        f"step {first['trained']}, ar_inverse launches {r['launches']}")
+    log(f"lawnmower_4x4: translation RMSE {first['trans']:.4f} m (<= "
+        f"{bound:.4f} = {LAWNMOWER_GATE_FACTOR} x the JAX CLI's worst over "
+        f"seeds 0-4 on the CPU, {JAX_LAWNMOWER_WORST:.4f}), landmark RMSE "
+        f"{first['landmark']:.4f} m; the JAX package on a TPU "
+        f"(BENCHMARKS.md, a TPU figure): {TPU_LAWNMOWER_RMSE} m")
+    for name, w in first["weights"].items():
+        log(f"  hypothesis weights {name}: {[round(x, 4) for x in w]}")
+    log(f"lawnmower_4x4 rerun from the checkpoint directory: "
+        f"{sum(rerun['step_s']):.3f} s of steps, cliques trained "
+        f"{sum(rerun['trained'])}, translation RMSE {rerun['trans']:.4f} m, "
+        f"largest posterior-mean move {r['moved']:.4f} m (<= "
+        f"{RERUN_MEAN_GATE_M})")
+    for name, rc, seconds, tail in r["commands"]:
+        log(f"python -m nfisam_tpu_torch {name}: exit {rc} in "
+            f"{seconds:.1f} s; {tail}")
+    if r["launches"] == 0:
+        raise SystemExit("the lawnmower solve never launched the "
+                         "ar_inverse kernel")
+    if not all(np.isfinite(m).all() for m in first["means"].values()):
+        raise SystemExit("lawnmower_4x4: non-finite posterior means")
+    if not first["trans"] <= bound:
+        raise SystemExit("lawnmower_4x4: accuracy gate failed")
+    if sum(rerun["trained"]) or not r["moved"] <= RERUN_MEAN_GATE_M:
+        raise SystemExit("lawnmower_4x4 rerun: the checkpoint gate failed")
+    if any(rc != 0 for _, rc, _, _ in r["commands"]):
+        raise SystemExit("python -m nfisam_tpu_torch exited non-zero")
+    return r["launches"]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1622,7 +1970,6 @@ def main() -> int:
         raise SystemExit("roundtrip residual gate failed")
 
     launches, par_solver = case1_phase(device, True, name2dim)
-    entry["launches"] = launches[0]
     elapsed()
     plaza_solver = plaza_phase(device)
     elapsed()
@@ -1640,6 +1987,12 @@ def main() -> int:
     elapsed()
     manhattan_solver = manhattan_phase(device)
     elapsed()
+    eight_node_solver = eight_node_phase(device)
+    elapsed()
+    restored_solver = case1_jax_checkpoint_phase(device, name2dim)
+    elapsed()
+    entry["launches"] = lawnmower_phase(device)
+    elapsed()
 
     finals = [("case1 NFiSAM", seq_solver),
               ("case1 ParallelNFiSAM", par_solver),
@@ -1653,6 +2006,8 @@ def main() -> int:
                for seed, solver in zip(DA_SEEDS, da_solvers)]
     finals.append(("plaza1_ada0.2", plaza_ada_solver))
     finals.append(("manhattan g8", manhattan_solver))
+    finals.append(("eight-node chain", eight_node_solver))
+    finals.append(("case1 from the JAX store", restored_solver))
     for label, solver in finals:
         rel, fused_s, walk_s = fused_vs_per_clique(solver)
         log(f"{label}: fused pass vs per-clique walk on the final state, "

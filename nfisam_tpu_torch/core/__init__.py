@@ -1,3 +1,4 @@
 from . import geometry
-from .variables import (Variable, VariableType, R1Variable, R2Variable,
-                        SE2Variable, circular_dim_list)
+from .variables import (Variable, VariableType, Bearing2DVariable,
+                        R1Variable, R2Variable, SE2Variable,
+                        circular_dim_list)

@@ -52,6 +52,10 @@ class Variable:
         return self._type
 
     @property
+    def translational_dim(self) -> int:
+        return self._dim - len(self._rot_dims)
+
+    @property
     def circular_dim_list(self) -> List[bool]:
         """Per-dim circular flags; convention: translation dims first."""
         return [i in self._rot_dims for i in range(self._dim)]
@@ -100,6 +104,12 @@ class R1Variable(Variable):
         super().__init__(name, 1, variable_type, None)
 
 
+class Bearing2DVariable(Variable):
+    def __init__(self, name: Hashable,
+                 variable_type: VariableType = VariableType.Pose) -> None:
+        super().__init__(name, 1, variable_type, {0})
+
+
 class SE2Variable(Variable):
     def __init__(self, name: Hashable,
                  variable_type: VariableType = VariableType.Pose) -> None:
@@ -109,6 +119,7 @@ class SE2Variable(Variable):
 _SPACE_TO_CLASS = {
     "R2": R2Variable,
     "R1": R1Variable,
+    "Bearing2D": Bearing2DVariable,
     "SE2": SE2Variable,
 }
 

@@ -1,13 +1,12 @@
-"""Posterior quality metrics: the Gaussian-kernel MMD of the reference,
-point-estimate errors, and the alignments the scale runners judge a
-posterior in.
+"""Posterior quality metrics: the Gaussian-kernel MMD of the reference
+and its variants, point-estimate errors, the alignments the scale
+runners judge a posterior in, and the closed forms of a linear-Gaussian
+displacement graph that exact-posterior tests check against.
 
-Counterpart of ``mmd``, ``rmse``, ``sample_mean``, ``geodesic_distance``,
-``translation_distance``, ``kabsch_umeyama``, ``rigid_gauge_transform``,
-``anchor_samples``, ``sample_dict_to_array`` and ``array_order_to_dict``
-in ``nfisam_tpu/eval/metrics.py``, as host numpy in float64: pairwise
-squared distances are taken as direct differences, so coordinates of
-O(100 m) lose nothing to cancellation.
+Counterpart of ``nfisam_tpu/eval/metrics.py`` (all but the kernel Stein
+discrepancy), as host numpy in float64: pairwise squared distances are
+taken as direct differences, so coordinates of O(100 m) lose nothing to
+cancellation.
 """
 from __future__ import annotations
 
@@ -25,18 +24,45 @@ def _sq_dists(X: np.ndarray, Y: np.ndarray) -> np.ndarray:
     return np.sum(d * d, axis=-1)
 
 
+def _kernel_sums(X, Y, two_s2: float):
+    """Sums of the RBF kernel exp(-|a - b|^2 / two_s2) over XX, YY, XY."""
+    X = np.asarray(X, dtype=np.float64)
+    Y = np.asarray(Y, dtype=np.float64)
+    return (np.sum(np.exp(-_sq_dists(X, X) / two_s2)),
+            np.sum(np.exp(-_sq_dists(Y, Y) / two_s2)),
+            np.sum(np.exp(-_sq_dists(X, Y) / two_s2)), X.shape[0],
+            Y.shape[0])
+
+
+def mmd_unbiased_sq(X, Y, sigma: float = 1.0) -> float:
+    """Unbiased squared MMD with an RBF kernel of width ``sigma``
+    (reference ``MMDu2``)."""
+    kxx, kyy, kxy, m, n = _kernel_sums(X, Y, 2.0 * sigma ** 2)
+    return float((kxx - m) / (m * (m - 1)) - 2.0 * kxy / (m * n)
+                 + (kyy - n) / (n * (n - 1)))
+
+
+def mmd_biased(X, Y, sigma: float = 1.0) -> float:
+    """Biased MMD estimate (reference ``MMDb``)."""
+    kxx, kyy, kxy, m, n = _kernel_sums(X, Y, 2.0 * sigma ** 2)
+    return float(np.sqrt(max(kxx / m ** 2 - 2.0 * kxy / (m * n)
+                             + kyy / n ** 2, 0.0)))
+
+
+def mmd_sq_signed(samples1, samples2, k_sigma2: float = 1.0) -> float:
+    """The squared MMD of ``mmd``, unclamped: it can be negative, which
+    the clamp in ``mmd`` hides."""
+    kxx, kyy, kxy, m, n = _kernel_sums(samples1, samples2, 2.0 * k_sigma2)
+    return float((kxx - m) / (m * (m - 1)) + (kyy - n) / (n * (n - 1))
+                 - 2.0 * kxy / (m * n))
+
+
 def mmd(samples1, samples2, k_sigma2: float = 1.0) -> float:
     """Normalized Gaussian-kernel MMD: the kernel is a Gaussian density
     with covariance ``k_sigma2 I`` normalized by its value at 0, and the
     within-set sums leave out the diagonal."""
-    X = np.asarray(samples1, dtype=np.float64)
-    Y = np.asarray(samples2, dtype=np.float64)
-    m, n = X.shape[0], Y.shape[0]
-    two_s2 = 2.0 * k_sigma2
-    E1 = (np.sum(np.exp(-_sq_dists(X, X) / two_s2)) - m) / (m * (m - 1))
-    E2 = (np.sum(np.exp(-_sq_dists(Y, Y) / two_s2)) - n) / (n * (n - 1))
-    E3 = np.sum(np.exp(-_sq_dists(X, Y) / two_s2)) / (m * n)
-    return float(np.sqrt(max(E1 + E2 - 2.0 * E3, 0.0)))
+    return float(np.sqrt(max(mmd_sq_signed(samples1, samples2, k_sigma2),
+                             0.0)))
 
 
 def rmse(samples1, samples2) -> float:
@@ -179,3 +205,102 @@ def array_order_to_dict(samples: np.ndarray,
         out[v] = samples[:, cur:cur + v.dim]
         cur += v.dim
     return out
+
+
+def gaussian_displacement_graph_moments(
+        variables: List[Variable],
+        displacements: Dict[Tuple[Variable, Variable],
+                            Tuple[np.ndarray, np.ndarray]],
+        priors: Dict[Variable, Tuple[np.ndarray, np.ndarray]]
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Closed-form mean and covariance of a linear-Gaussian displacement
+    graph (x_b = x_a + mean + noise on each edge, Gaussian priors), over
+    ``variables`` stacked in order."""
+    idx = {}
+    start = 0
+    for v in variables:
+        idx[v] = (start, start + v.dim)
+        start += v.dim
+    Lam = np.zeros((start, start))
+    h = np.zeros(start)
+    for v, (mean, cov) in priors.items():
+        i0, i1 = idx[v]
+        Li = np.linalg.inv(cov)
+        Lam[i0:i1, i0:i1] += Li
+        h[i0:i1] += Li @ mean
+    for (va, vb), (mean, cov) in displacements.items():
+        i0, i1 = idx[va]
+        j0, j1 = idx[vb]
+        Li = np.linalg.inv(cov)
+        hl = Li @ mean
+        Lam[i0:i1, i0:i1] += Li
+        Lam[j0:j1, j0:j1] += Li
+        Lam[i0:i1, j0:j1] -= Li
+        Lam[j0:j1, i0:i1] -= Li
+        h[i0:i1] -= hl
+        h[j0:j1] += hl
+    Sigma = np.linalg.inv(Lam)
+    return Sigma @ h, Sigma
+
+
+def gaussian_displacement_graph_evidence(joint) -> float:
+    """The exact log evidence of a linear-Gaussian displacement graph,
+    log E_{tree prior}[prod of its likelihood factors].
+
+    ``joint`` is a ``samplers.joint.StructuredJointFactor`` whose tree
+    priors are Gaussian unary factors (``mu``, ``covariance``) and whose
+    tree binaries and likelihood factors are displacement factors
+    (x_b = x_a + obs + eps).  The tree prior of the stacked variables is
+    Gaussian N(mu0, S0) by moment propagation, each likelihood factor
+    reads obs_i = H_i x + eps_i with H_i = [-I  +I], and the evidence is
+    the Gaussian marginal likelihood N(obs; H mu0, H S0 H^T + R)."""
+    idx = {}
+    start = 0
+    for v in joint.vars:
+        idx[v] = (start, start + v.dim)
+        start += v.dim
+    D = start
+    mu = np.zeros(D)
+    S = np.zeros((D, D))
+    for f in joint.tree_priors:
+        i0, i1 = idx[f.vars[0]]
+        mu[i0:i1] = np.asarray(f.mu, dtype=np.float64)
+        S[i0:i1, i0:i1] = np.asarray(f.covariance, dtype=np.float64)
+    for f, var1_sampled in joint.tree_binaries:
+        va, vb = f.vars
+        src, dst, sign = (va, vb, 1.0) if var1_sampled else (vb, va, -1.0)
+        s0, s1 = idx[src]
+        d0, d1 = idx[dst]
+        mu[d0:d1] = mu[s0:s1] + sign * np.asarray(f.obs, dtype=np.float64)
+        # x_dst = x_src +- obs + eps: copy the covariance rows, add the
+        # noise on the diagonal block
+        S[d0:d1, :] = S[s0:s1, :]
+        S[:, d0:d1] = S[:, s0:s1]
+        S[d0:d1, d0:d1] = S[s0:s1, s0:s1] + \
+            np.asarray(f.covariance, dtype=np.float64)
+    rows, obs, Rs = [], [], []
+    for f in joint.likelihood_factors:
+        va, vb = f.vars
+        a0, a1 = idx[va]
+        b0, b1 = idx[vb]
+        H = np.zeros((va.dim, D))
+        H[:, a0:a1] = -np.eye(va.dim)
+        H[:, b0:b1] = np.eye(va.dim)
+        rows.append(H)
+        obs.append(np.asarray(f.obs, dtype=np.float64))
+        Rs.append(np.asarray(f.covariance, dtype=np.float64))
+    H = np.vstack(rows)
+    b = np.concatenate(obs)
+    R = np.zeros((len(b), len(b)))
+    o = 0
+    for Ri in Rs:
+        k = Ri.shape[0]
+        R[o:o + k, o:o + k] = Ri
+        o += k
+    C = H @ S @ H.T + R
+    resid = b - H @ mu
+    sign, logdet = np.linalg.slogdet(2.0 * np.pi * C)
+    if sign <= 0:
+        raise ValueError("the observation covariance is not positive "
+                         "definite")
+    return float(-0.5 * (logdet + resid @ np.linalg.solve(C, resid)))

@@ -124,6 +124,9 @@ class CliqueFlowModel:
     circular_dim_list: List[bool]
     aug_sep_dim: int
     pad_dims: int = 0
+    # content fingerprint of the trained flow (stamped at training, as in
+    # the JAX package): a checkpoint signature of a parent clique reads it
+    content_tag: str = ""
     # circular flags of all dim columns (pad columns Euclidean), on device
     circ_mask: torch.Tensor = field(init=False, repr=False)
 
@@ -136,7 +139,7 @@ class CliqueFlowModel:
     @classmethod
     def from_numpy(cls, cfg_fields: dict, flow_params, mean, std,
                    circular_dim_list, aug_sep_dim: int, pad_dims: int,
-                   device) -> "CliqueFlowModel":
+                   device, content_tag: str = "") -> "CliqueFlowModel":
         """A model from parameters exported as numpy (e.g. a clique model
         of the JAX package): ``cfg_fields`` are ``NSFConfig``'s fields."""
         fields = dict(cfg_fields)
@@ -148,7 +151,7 @@ class CliqueFlowModel:
                                 device=device),
                    torch.tensor(np.asarray(std, np.float32), device=device),
                    [bool(c) for c in circular_dim_list], int(aug_sep_dim),
-                   int(pad_dims))
+                   int(pad_dims), str(content_tag))
 
     @property
     def dim(self) -> int:
@@ -166,7 +169,7 @@ class CliqueFlowModel:
         """The same density with a different separator/frontal split."""
         return CliqueFlowModel(self.cfg, self.flow_params, self.mean,
                                self.std, self.circular_dim_list, aug_sep_dim,
-                               self.pad_dims)
+                               self.pad_dims, self.content_tag)
 
     def _padded(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(device=self.device, dtype=torch.float32)

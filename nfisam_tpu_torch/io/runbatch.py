@@ -20,10 +20,17 @@ from .fg_io import read_factor_graph_from_file
 StepBatch = Tuple[List[Variable], List[Factor]]
 
 
-def graph_file_parser(data_file: str, data_format: str = "fg"):
-    """(nodes, truth, factors) of a ``.fg`` file."""
+def graph_file_parser(data_file: str, data_format: str = "fg",
+                      prior_cov_scale: float = 0.1):
+    """(nodes, truth, factors) of a ``.fg`` file, or of a g2o / TORO pose
+    graph with a prior of ``prior_cov_scale`` I anchoring its first node."""
     if data_format == "fg":
         return read_factor_graph_from_file(data_file)
+    if data_format in ("g2o", "toro"):
+        from .g2o import G2oToroPoseGraphReader
+        nodes, factors, truth = G2oToroPoseGraphReader(
+            data_file).data_for_solver(prior_cov_scale=prior_cov_scale)
+        return nodes, truth, factors
     raise ValueError(f"Unknown data format {data_format}")
 
 

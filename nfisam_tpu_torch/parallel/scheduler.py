@@ -11,18 +11,19 @@ order only makes a parent wait on its children, so:
    lockstep loop (``fit_flows_batched``), in chunks of at most ``CHUNK``
    cliques; a lone clique trains with ``fit_flow_raw``.
 
-The solver's key stream is consumed in the JAX package's order: one
-simulation key per clique of the wave, then one pad key per clique in
-bucketing order, then the fit keys chunk by chunk.  So the port trains
-the same cliques, in the same buckets, as the JAX package.  Checkpoints
-and multi-host chunking are not ported: there is no restore branch and
+A clique whose signature is in the checkpoint store loads instead of
+simulating and training.  The solver's key stream is consumed in the JAX
+package's order: one simulation key per clique of the wave that did not
+load, then one pad key per clique in bucketing order, then the fit keys
+chunk by chunk.  So the port trains the same cliques, in the same
+buckets, as the JAX package.  Multi-host chunking is not ported:
 ``host_trained_cliques`` stays empty.
 
 ``ParallelNFiSAM`` is a drop-in replacement for ``NFiSAM``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +31,7 @@ import torch
 from ..core.variables import circular_dim_list
 from ..flows.model import CliqueFlowModel
 from ..graph.bayes_tree import CliqueNode
+from ..solver.checkpoint import content_tag
 from ..solver.nfisam import FlowModelAdapter, NFiSAM, NFiSAMArgs
 from ..train.trainer import fit_flow_raw, fit_flows_batched
 
@@ -67,17 +69,34 @@ class ParallelNFiSAM(NFiSAM):
         self.host_trained_cliques: List[str] = []
         self.bucket_log: List[Tuple[int, int, int]] = []
 
-    def fit_tree_density_models(self) -> None:
+    def fit_tree_density_models(self, timer: Optional[List[float]] = None,
+                                clique_dim_timer: Optional[List] = None
+                                ) -> None:
+        """Wave by wave: load or simulate every clique, then train the
+        simulated ones by bucket.  ``timer`` gets each clique's simulation
+        seconds and each chunk's seconds since its bucket began;
+        ``clique_dim_timer`` a [dim, seconds since the fit began] pair as
+        each trained clique is done."""
         self._temp_training_loss = {}
         self._evict_stale_value_matches()
         ordering = self._working_bayes_tree.clique_ordering()
+        t_begin = self._clock() if clique_dim_timer is not None else 0.0
         for wave in wavefronts(ordering, self._clique_density_model):
-            # ---- simulate every clique of the wave ----------------------
+            # ---- load or simulate every clique of the wave --------------
             sims = []
             for clique in wave:
+                restored = self.try_load_clique_model(clique)
+                if restored is not None:
+                    model, self._clique_true_obs[clique] = restored
+                    self._clique_density_model[clique] = model
+                    self._finish_clique(clique, model)
+                    continue
+                t0 = self._clock() if timer is not None else 0.0
                 samples, var_ordering, true_obs = \
                     self.clique_training_sampler(
                         clique, num_samples=self._args.local_sample_num)
+                if timer is not None:
+                    timer.append(self._clock() - t0)
                 self._clique_true_obs[clique] = true_obs
                 sims.append((clique, samples, var_ordering))
 
@@ -96,21 +115,30 @@ class ParallelNFiSAM(NFiSAM):
 
             for (aug_dim, n, *_), items in buckets.items():
                 self.bucket_log.append((aug_dim, n, len(items)))
+                t0 = self._clock() if timer is not None else 0.0
                 cfg = self._flow_config(
                     aug_dim, list(items[0][3]) + [False] * items[0][4])
                 for i in range(0, len(items), CHUNK):
-                    self._fit_bucket_chunk(items[i:i + CHUNK], cfg, aug_dim)
+                    self._fit_bucket_chunk(items[i:i + CHUNK], cfg, aug_dim,
+                                           n)
+                    if timer is not None:
+                        timer.append(self._clock() - t0)
+                    if clique_dim_timer is not None:
+                        done = self._clock() - t_begin
+                        clique_dim_timer.extend([item[0].dim, done]
+                                                for item in items[i:i + CHUNK])
 
-    def _fit_bucket_chunk(self, items, cfg, aug_dim: int) -> None:
+    def _fit_bucket_chunk(self, items, cfg, aug_dim: int, n: int) -> None:
         tc = self._args.train_config()
         scale_circ = self._args.flow_type == "NSF_AR"
         if len(items) == 1:
             clique, samples, var_ordering, circ, pad = items[0]
+            key = self._next_key()
             params, iter_loss, n_iters, mean, std = fit_flow_raw(
-                self._next_key(), samples, cfg, tc, circ + [False] * pad,
+                key, samples, cfg, tc, circ + [False] * pad,
                 scale_circular=scale_circ)
             fitted = [(clique, circ, pad, params, iter_loss, n_iters, mean,
-                       std)]
+                       std, key)]
         else:
             keys = np.stack([self._next_key() for _ in items])
             samples_stack = torch.stack([s for _, s, _, _, _ in items])
@@ -121,16 +149,17 @@ class ParallelNFiSAM(NFiSAM):
                 scale_circular=scale_circ)
             fitted = [(clique, circ, pad,
                        [{k: v[b] for k, v in p.items()} for p in p_s],
-                       il_s[b], t_s[b], m_s[b], s_s[b])
+                       il_s[b], t_s[b], m_s[b], s_s[b], keys[b])
                       for b, (clique, _, _, circ, pad) in enumerate(items)]
 
-        for clique, circ, pad, params, iter_loss, n_iters, mean, std in \
-                fitted:
+        for clique, circ, pad, params, iter_loss, n_iters, mean, std, key \
+                in fitted:
             aug_sep_dim = aug_dim - pad - clique.frontal_dim
-            model = CliqueFlowModel(cfg, params, mean, std, circ,
-                                    aug_sep_dim, pad_dims=pad)
+            model = CliqueFlowModel(
+                cfg, params, mean, std, circ, aug_sep_dim, pad_dims=pad,
+                content_tag=content_tag(key, cfg, (n, aug_dim)))
             adapter = FlowModelAdapter(model, self._next_key)
-            clique_name = "".join(sorted(str(v.name) for v in clique.vars))
-            self._temp_training_loss[clique_name] = (iter_loss, n_iters)
+            self._record_training_loss(clique, iter_loss, n_iters)
+            self._save_clique_model(clique, model)
             self._clique_density_model[clique] = adapter
             self._finish_clique(clique, adapter)

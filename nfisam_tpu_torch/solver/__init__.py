@@ -5,3 +5,5 @@ from .solver import (CliqueSeparatorFactor, ConditionalSampler,
 from .posterior_pass import LazySamples, fused_sample_posterior
 from .banked_joint import FactorBanks, IncrementalGaussNewtonMAP
 from .map_solver import GaussNewtonMAP
+from .run import (NFiSAM_empirial_study, nfisam_empirical_study,
+                  run_incrementally)

@@ -28,9 +28,8 @@ its iteration cap depends on rounding, so the card, the CPU and the JAX
 package would each report another floor (PERF.md); the estimate is kept
 in float32 between solves, as in JAX.  The JAX package pads the state and
 the bank rows to powers of two to bound recompiles, and pins the solver
-to the CPU; the port does neither.  The R^2 relative-odometry bank waits
-for its factor (``R2RelativeGaussianLikelihoodFactor`` is not ported
-yet).
+to the CPU; the port does neither.  The R^2 relative-odometry bank is not
+ported: a graph with ``R2RelativeGaussianLikelihoodFactor`` raises.
 """
 from __future__ import annotations
 
@@ -128,13 +127,21 @@ def _banked_nll(x: torch.Tensor, banks) -> torch.Tensor:
 
 
 class SparseHessian:
-    """The Hessian of ``_banked_nll`` as a CSR matrix: each bank row's
-    dense (L, L) block, ``torch.func.hessian`` of its row function under
-    ``vmap``, summed into the (D, D) pattern of the banks' index columns.
-    The pattern (sorted unique entries, and the order that groups each
-    entry's contributions) is built once; ``at(x)`` sums the blocks per
-    entry with ``segment_reduce`` (no atomics, so the same on every run)
-    and waits for nothing on the host."""
+    """The gradient and Hessian of ``_banked_nll``, each summed in a fixed
+    order so that a solve gives the same bits on every run.  The Hessian
+    is a CSR matrix: each bank row's dense (L, L) block, ``torch.func.
+    hessian`` of its row function under ``vmap``, summed into the (D, D)
+    pattern of the banks' index columns; the gradient is each bank row's
+    L partials, ``torch.func.grad`` under ``vmap``, summed per state
+    column.  The patterns (sorted unique entries, and the order that
+    groups each entry's contributions) are built once; every sum is a
+    ``segment_reduce`` (no atomics) and waits for nothing on the host.
+
+    ``mv`` is the product with the CSR matrix, each row's products summed
+    by ``segment_reduce`` too.  Neither autograd's gradient of the gathers
+    (``index_put_`` with accumulation) nor cuSPARSE's default CSR product
+    promises one summation order on a card, and either lets a capped
+    LM-CG solve end somewhere else on each run."""
 
     def __init__(self, banks, D: int):
         self.banks = banks
@@ -150,22 +157,39 @@ class SparseHessian:
         self.counts = counts
         r = uniq // D
         self.col = uniq - r * D
-        self.crow = torch.cat([r.new_zeros(1), torch.cumsum(
-            torch.bincount(r, minlength=D), 0)])
+        self.row_counts = torch.bincount(r, minlength=D)
+        self.crow = torch.cat([r.new_zeros(1),
+                               torch.cumsum(self.row_counts, 0)])
+        grad_cols = torch.cat([idx.reshape(-1) for idx, _ in banks.values()])
+        self.grad_order = torch.argsort(grad_cols, stable=True)
+        self.grad_counts = torch.bincount(grad_cols, minlength=D)
         self.D = D
 
-    def at(self, x: torch.Tensor) -> torch.Tensor:
-        # (functorch's hessian can come back in float64 where an SE(2)
-        # residual's angle is exactly 0, hence the cast)
-        vals = torch.cat([
-            torch.func.vmap(torch.func.hessian(_ROW_NLL[name]))(
+    def _rows(self, transform, x: torch.Tensor) -> torch.Tensor:
+        # (functorch can come back in float64 where an SE(2) residual's
+        # angle is exactly 0, hence the cast)
+        return torch.cat([
+            torch.func.vmap(transform(_ROW_NLL[name]))(
                 x[idx], *params).reshape(-1).to(x.dtype)
             for name, (idx, params) in self.banks.items()])
+
+    def grad(self, x: torch.Tensor) -> torch.Tensor:
+        vals = self._rows(torch.func.grad, x)
+        return torch.segment_reduce(vals[self.grad_order], "sum",
+                                    lengths=self.grad_counts)
+
+    def at(self, x: torch.Tensor) -> torch.Tensor:
+        vals = self._rows(torch.func.hessian, x)
         summed = torch.segment_reduce(vals[self.order], "sum",
                                       lengths=self.counts)
         return torch.sparse_csr_tensor(self.crow, self.col, summed,
                                        (self.D, self.D),
                                        check_invariants=False)
+
+    def mv(self, H: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """``H v`` for a matrix ``at`` returned."""
+        return torch.segment_reduce(H.values() * v[self.col], "sum",
+                                    lengths=self.row_counts)
 
 
 def conjugate_gradient(matvec, b: torch.Tensor, maxiter: int,
@@ -202,13 +226,13 @@ def lm_cg_solve(x0: torch.Tensor, banks, max_iters: int):
     the NLL (then lam *= MAP_DAMPING_DOWN, else *= MAP_DAMPING_UP, clipped
     to [1e-10, 1e10]), and stops when an accepted step changes the NLL by
     less than ``MAP_TOL (1 + |f|)`` or after ``max_iters`` iterations.
-    ``H v`` is the product with ``SparseHessian``: the value of
-    ``torch.func.jvp`` of ``torch.func.grad`` at ``v``, as one sparse
-    product instead of ~1500 eager operations.  Returns (x, final NLL, iterations)."""
+    The gradient and ``H v`` come from ``SparseHessian`` (``H v`` is the
+    value of ``torch.func.jvp`` of ``torch.func.grad`` at ``v``, as one
+    sparse product instead of ~1500 eager operations), summed in a fixed
+    order.  Returns (x, final NLL, iterations)."""
     def nll(x):
         return _banked_nll(x, banks)
 
-    grad_fn = torch.func.grad(nll)
     hessian = SparseHessian(banks, x0.shape[0])
     x = x0
     lam = torch.tensor(MAP_INIT_DAMPING, dtype=x0.dtype, device=x0.device)
@@ -218,9 +242,9 @@ def lm_cg_solve(x0: torch.Tensor, banks, max_iters: int):
         H = hessian.at(x)
 
         def hvp(v, H=H, lam=lam):
-            return torch.mv(H, v) + lam * v
+            return hessian.mv(H, v) + lam * v
 
-        x_new = x + conjugate_gradient(hvp, -grad_fn(x), MAP_CG_ITERS)
+        x_new = x + conjugate_gradient(hvp, -hessian.grad(x), MAP_CG_ITERS)
         f_new = nll(x_new)
         better = f_new < f_val
         done = better & (torch.abs(f_val - f_new) <

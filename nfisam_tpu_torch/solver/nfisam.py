@@ -8,6 +8,8 @@ AR inverse, which is the CUDA kernel on a card.
 """
 from __future__ import annotations
 
+import hashlib
+import os
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -18,9 +20,28 @@ from ..core.variables import Variable, circular_dim_list
 from ..flows.model import CliqueFlowModel
 from ..flows.nsf import NSFConfig
 from ..graph.bayes_tree import CliqueNode
+from ..samplers.simulation import compile_schedule
 from ..train.trainer import TrainConfig, fit_flow_raw
+from .checkpoint import CliqueModelStore, clique_signature, content_tag
 from .solver import (CliqueSeparatorFactor, ConditionalSampler,
                      FactorGraphSolver, SolverArgs)
+
+# clique-dim bucketing: every clique pads up to the next power of two at
+# least this large, so a solve hits few flow shapes
+DIM_BUCKET_FLOOR = 16
+# NFiSAMArgs fields the port takes only at the JAX package's default:
+# field -> (default, the ROADMAP item that would lift it).  Another
+# bucketing or conditioner width reaches flow shapes the AR-inverse
+# kernel lacks; validation-based stopping and multi-host chunking are not
+# ported
+FIXED_ARGS = {
+    "training_set_frac": (1.0, "A, smaller gaps: validation-based "
+                               "stopping"),
+    "host_parallel": ("auto", "A21"),
+    "pad_dim_multiple": (0, "B1a"),
+    "dim_bucket_floor": (DIM_BUCKET_FLOOR, "B1a"),
+    "scale_hidden_with_dim": (True, "B1a"),
+}
 
 
 @dataclass
@@ -35,6 +56,20 @@ class NFiSAMArgs(SolverArgs):
     average_window: int = 50
     loss_delta_tol: float = 1e-2
     checkpoint_dir: Optional[str] = None
+    # a directory to write each trained clique's loss curve to
+    # (``<sorted clique variable names>.txt``); nothing if it is missing
+    training_loss_dir: Optional[str] = None
+    # the JAX package's options the port takes only at their defaults
+    # (``FIXED_ARGS``)
+    training_set_frac: float = 1.0
+    host_parallel: object = "auto"
+    pad_dim_multiple: int = 0
+    dim_bucket_floor: int = DIM_BUCKET_FLOOR
+    scale_hidden_with_dim: bool = True
+
+    def json_str(self) -> str:
+        return self._json({"validation_interval": 10,
+                           "slower_stop_rate": 2.0})
 
     def train_config(self) -> TrainConfig:
         return TrainConfig(
@@ -42,11 +77,6 @@ class NFiSAMArgs(SolverArgs):
             learning_rate=self.learning_rate,
             average_window=self.average_window,
             loss_delta_tol=self.loss_delta_tol)
-
-
-# clique-dim bucketing: every clique pads up to the next power of two at
-# least this large, so a solve hits few flow shapes
-DIM_BUCKET_FLOOR = 16
 
 
 def effective_hidden_dim(args, aug_dim: int) -> int:
@@ -88,6 +118,14 @@ class FlowsPriorFactor(CliqueSeparatorFactor):
         self._next_key = key_source
         if self.dim != len(self._circular_dim_list):
             raise ValueError("circular_dim_list does not match the vars")
+        # the backing flow's fingerprint, read by the checkpoint signature
+        # of the cliques above: the tag stamped at training, else a hash
+        # of the flow's normalizer and last layer
+        self.content_tag = flow_model.content_tag or hashlib.sha256(
+            flow_model.mean.cpu().numpy().tobytes() +
+            flow_model.std.cpu().numpy().tobytes() +
+            flow_model.flow_params[0]["b3"].detach().cpu().numpy().tobytes()
+        ).hexdigest()[:16]
 
     @property
     def vars(self) -> List[Variable]:
@@ -143,14 +181,59 @@ class NFiSAM(FactorGraphSolver):
 
     def __init__(self, args: NFiSAMArgs = None, device=None):
         args = args or NFiSAMArgs()
-        if args.checkpoint_dir is not None:
-            raise NotImplementedError(
-                "clique checkpoints are not ported yet; leave "
-                "checkpoint_dir unset")
+        for name, (default, item) in FIXED_ARGS.items():
+            if getattr(args, name) != default:
+                raise NotImplementedError(
+                    f"{name}={getattr(args, name)!r} is not ported (ROADMAP "
+                    f"{item}); the port takes only {default!r}")
         if args.flow_type not in ("NSF_AR", "NSF_AR_CS"):
             raise NotImplementedError(f"Unknown flow type {args.flow_type}")
         super().__init__(args=args, device=device)
         self._args: NFiSAMArgs = self._args
+        self._model_store = None
+        if args.checkpoint_dir is not None:
+            self._model_store = CliqueModelStore(args.checkpoint_dir,
+                                                 self.device)
+
+    # ---------------------------------------------------------- checkpoint
+    def _clique_signature(self, clique):
+        """(signature, simulation schedule) of a clique in the working
+        graph, as the JAX package computes them."""
+        subgraph = self._working_graph.clique_subgraph(clique)
+        pattern = self._working_bayes_tree.clique_variable_pattern(clique)
+        schedule = compile_schedule(subgraph.factors, pattern)
+        circ = circular_dim_list(schedule.var_ordering)
+        cfg = self._flow_config(len(circ), circ)
+        return clique_signature(clique, schedule.var_ordering,
+                                subgraph.factors, cfg), schedule
+
+    def try_load_clique_model(self, clique):
+        """(model, true observations) from the checkpoint store when the
+        clique's signature is there, else None.  A clique holding a
+        mode-repaired variable always retrains: its stored flow is the one
+        the repair evicted, and its own factors can be unchanged."""
+        if self._model_store is None or (self._repair_vars & clique.vars):
+            return None
+        sig, schedule = self._clique_signature(clique)
+        model = self._model_store.load(sig)
+        if model is None:
+            return None
+        return FlowModelAdapter(model, self._next_key), schedule.unused_obs
+
+    def _save_clique_model(self, clique, model: CliqueFlowModel) -> None:
+        if self._model_store is not None:
+            self._model_store.save(self._clique_signature(clique)[0], model)
+
+    def _record_training_loss(self, clique, iter_loss, n_iters) -> None:
+        """Keep the clique's loss curve (on its device) for
+        ``training_losses``; write it to ``training_loss_dir`` if that is
+        a directory."""
+        clique_name = "".join(sorted(str(v.name) for v in clique.vars))
+        self._temp_training_loss[clique_name] = (iter_loss, n_iters)
+        loss_dir = self._args.training_loss_dir
+        if loss_dir is not None and os.path.isdir(loss_dir):
+            np.savetxt(os.path.join(loss_dir, f"{clique_name}.txt"),
+                       iter_loss[:int(n_iters)].cpu().numpy())
 
     # ------------------------------------------------------------- fitting
     def _flow_config(self, aug_dim: int,
@@ -186,8 +269,10 @@ class NFiSAM(FactorGraphSolver):
         return samples, pad
 
     def fit_clique_density_model(self, clique: CliqueNode, samples,
-                                 var_ordering: List[Variable]
+                                 var_ordering: List[Variable],
+                                 timer: Optional[List[float]] = None
                                  ) -> FlowModelAdapter:
+        """Fit the clique's flow; ``timer`` gets the training seconds."""
         samples = samples.to(torch.float32)
         aug_sep_dim = samples.shape[-1] - clique.frontal_dim
         circ = circular_dim_list(var_ordering)
@@ -195,13 +280,19 @@ class NFiSAM(FactorGraphSolver):
         padded_circ = circ + [False] * pad
         cfg = self._flow_config(samples.shape[-1], padded_circ)
 
+        key = self._next_key()
+        t0 = self._clock() if timer is not None else 0.0
         params, iter_loss, n_iters, mean, std = fit_flow_raw(
-            self._next_key(), samples, cfg, self._args.train_config(),
+            key, samples, cfg, self._args.train_config(),
             padded_circ, scale_circular=(self._args.flow_type == "NSF_AR"))
-        clique_name = "".join(sorted(str(v.name) for v in clique.vars))
-        self._temp_training_loss[clique_name] = (iter_loss, n_iters)
+        if timer is not None:
+            timer.append(self._clock() - t0)
+        self._record_training_loss(clique, iter_loss, n_iters)
         model = CliqueFlowModel(cfg, params, mean, std, circ,
-                                aug_sep_dim, pad_dims=pad)
+                                aug_sep_dim, pad_dims=pad,
+                                content_tag=content_tag(key, cfg,
+                                                        samples.shape))
+        self._save_clique_model(clique, model)
         return FlowModelAdapter(model, self._next_key)
 
     # ----------------------------------------------------------- recycling

@@ -17,8 +17,10 @@ variable.
 """
 from __future__ import annotations
 
+import json
+import time
 from collections.abc import Mapping
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -58,6 +60,20 @@ class SolverArgs:
     # contradicted landmark's cliques are re-eliminated instead of
     # recycled, so their flows retrain against all current evidence
     mode_repair: bool = True
+
+    def json_str(self) -> str:
+        return self._json({})
+
+    def _json(self, constants: dict) -> str:
+        """The arguments as JSON under the JAX package's keys: settings
+        that are constants here (``constants``, and mode repair's) join
+        the fields, at their values."""
+        d = asdict(self)
+        d.update(store_clique_samples=False, local_sampling_method="direct",
+                 mode_repair_sigma=MODE_REPAIR_SIGMA,
+                 mode_repair_max_per_step=MODE_REPAIR_MAX_PER_STEP,
+                 mode_repair_cooldown=MODE_REPAIR_COOLDOWN, **constants)
+        return json.dumps(d)
 
 
 class CliqueSeparatorFactor(ImplicitPriorFactor):
@@ -109,6 +125,17 @@ class FactorGraphSolver:
         """Raw key derived on host."""
         return self._keys()
 
+    def _clock(self) -> float:
+        """Host seconds once the device's queued work is done (a
+        synchronize on a card), so that a timer measures device work."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    @property
+    def elimination_ordering(self) -> List[Variable]:
+        return self._elimination_ordering
+
     @property
     def physical_vars(self) -> List[Variable]:
         return self._physical_graph.vars
@@ -159,9 +186,12 @@ class FactorGraphSolver:
             v: i for i, v in enumerate(self._elimination_ordering[::-1])}
 
     # -------------------------------------------------------- incremental
-    def update_physical_and_working_graphs(self) -> "FactorGraphSolver":
+    def update_physical_and_working_graphs(
+            self, timer: Optional[List[float]] = None
+    ) -> "FactorGraphSolver":
         """Fold new nodes/factors in, rebuild the working tree over affected
-        variables, recycle untouched models."""
+        variables, recycle untouched models; ``timer`` gets the seconds."""
+        start = self._clock() if timer is not None else 0.0
         old_nodes = set(self.physical_vars)
         touched = set()
         for f in self._new_factors:
@@ -228,6 +258,8 @@ class FactorGraphSolver:
 
         self._new_nodes = []
         self._new_factors = []
+        if timer is not None:
+            timer.append(self._clock() - start)
         return self
 
     def _mode_contradicted_vars(self, old_nodes) -> set:
@@ -404,14 +436,26 @@ class FactorGraphSolver:
             self._clique_variable_pattern.pop(old_clique, None)
 
     # ----------------------------------------------------------- inference
-    def incremental_inference(self) -> Dict[Variable, torch.Tensor]:
-        self.fit_tree_density_models()
-        self._samples = self.sample_posterior()
+    def incremental_inference(self, timer: Optional[List[float]] = None,
+                              clique_dim_timer: Optional[List] = None
+                              ) -> Mapping:
+        """Fit the working tree, then draw the posterior.  ``timer`` gets
+        the seconds of each clique's simulation and training and of the
+        posterior pass, in that order; ``clique_dim_timer`` a [dim, seconds
+        since the fit began] pair as each clique is done."""
+        self.fit_tree_density_models(timer=timer,
+                                     clique_dim_timer=clique_dim_timer)
+        self._samples = self.sample_posterior(timer=timer)
         return self._samples
 
-    def fit_clique_density_model(self, clique, samples, var_ordering
-                                 ) -> "ConditionalSampler":
+    def fit_clique_density_model(self, clique, samples, var_ordering,
+                                 timer=None) -> "ConditionalSampler":
         raise NotImplementedError
+
+    def try_load_clique_model(self, clique):
+        """(model, true observations) of a clique from a checkpoint store,
+        or None to simulate and train it (subclass policy)."""
+        return None
 
     def root_clique_density_model_to_leaf(self, old_clique, new_clique):
         raise NotImplementedError
@@ -442,25 +486,38 @@ class FactorGraphSolver:
                 self._clique_true_obs.pop(clique, None)
                 self._clique_variable_pattern.pop(clique, None)
 
-    def fit_tree_density_models(self) -> None:
-        """Leaves-to-root clique loop: simulate, fit, push the separator
-        marginal up as a prior factor."""
+    def fit_tree_density_models(self, timer: Optional[List[float]] = None,
+                                clique_dim_timer: Optional[List] = None
+                                ) -> None:
+        """Leaves-to-root clique loop: load from the checkpoint store or
+        simulate and fit, push the separator marginal up as a prior
+        factor.  Timers as ``incremental_inference``'s."""
         self._temp_training_loss = {}
         self._evict_stale_value_matches()
         clique_ordering = self._working_bayes_tree.clique_ordering()
+        t_begin = self._clock() if clique_dim_timer is not None else 0.0
         while clique_ordering:
             clique = clique_ordering.pop()
-            if clique in self._clique_density_model:
-                continue
-            local_samples, sample_var_ordering, true_obs = \
-                self.clique_training_sampler(
-                    clique, num_samples=self._args.local_sample_num)
-            model = self.fit_clique_density_model(
-                clique=clique, samples=local_samples,
-                var_ordering=sample_var_ordering)
-            self._clique_true_obs[clique] = true_obs
-            self._clique_density_model[clique] = model
-            self._finish_clique(clique, model)
+            if clique not in self._clique_density_model:
+                restored = self.try_load_clique_model(clique)
+                if restored is not None:
+                    model, true_obs = restored
+                else:
+                    t0 = self._clock() if timer is not None else 0.0
+                    local_samples, sample_var_ordering, true_obs = \
+                        self.clique_training_sampler(
+                            clique, num_samples=self._args.local_sample_num)
+                    if timer is not None:
+                        timer.append(self._clock() - t0)
+                    model = self.fit_clique_density_model(
+                        clique=clique, samples=local_samples,
+                        var_ordering=sample_var_ordering, timer=timer)
+                self._clique_true_obs[clique] = true_obs
+                self._clique_density_model[clique] = model
+                self._finish_clique(clique, model)
+            if clique_dim_timer is not None:
+                clique_dim_timer.append([clique.dim,
+                                         self._clock() - t_begin])
 
     def _finish_clique(self, clique: CliqueNode, model) -> None:
         """Push the clique's separator marginal up as a prior factor and
@@ -484,16 +541,29 @@ class FactorGraphSolver:
                                          vars=pattern, device=self.device)
         return sampler.sample(self._next_key(), num_samples)
 
-    def sample_posterior(self) -> Mapping:
+    def sample_posterior(self, timer: Optional[List[float]] = None
+                         ) -> Mapping:
         """Root-to-leaf conditional sampling of the physical tree: the
         fused pass (``posterior_pass.py``) when every clique's model is a
         flow, else the per-clique walk.  Returns Variable -> (n, dim)
         tensors on the solver's device; the fused pass's are read-only
-        views of one buffer."""
-        fused = fused_sample_posterior(self, self._args.posterior_sample_num)
-        if fused is not None:
-            return fused
-        return self.sample_posterior_per_clique()
+        views of one buffer.  ``timer`` gets the seconds."""
+        start = self._clock() if timer is not None else 0.0
+        samples = fused_sample_posterior(self,
+                                         self._args.posterior_sample_num)
+        if samples is None:
+            samples = self.sample_posterior_per_clique()
+        if timer is not None:
+            timer.append(self._clock() - start)
+        return samples
+
+    def training_losses(self) -> Dict[str, List[float]]:
+        """The last fit's loss curve of each trained clique, by its sorted
+        variable names (one copy to the host a clique)."""
+        return {name: [float(v) for v in
+                       iter_loss[:int(n_iters)].cpu().tolist()]
+                for name, (iter_loss, n_iters) in
+                self._temp_training_loss.items()}
 
     def sample_posterior_per_clique(self) -> Dict[Variable, torch.Tensor]:
         """Root-to-leaf conditional sampling, one clique at a time: each

@@ -7,7 +7,15 @@ where JAX is not installed.  Every test carries the ``cuda`` marker and
 skips without a card.  On a card: ``python -m pytest --noconftest -p
 no:cacheprovider -m cuda tests/test_torch_cuda.py`` (the tests'
 ``conftest.py`` imports JAX).
-Tolerance: atol 1e-5, rtol 1e-5, as the JAX package's Pallas tests."""
+Tolerance: atol 1e-5, rtol 1e-5, as the JAX package's Pallas tests.
+
+Run as a script on a card, ``python tests/test_torch_cuda.py``, it
+diagnoses the banked MAP's repeatability at plaza1's truth (float64):
+each part of an LM iteration repeated 50 times at one input, then the
+truth floor solved in one process by the LM-CG loop as it was before the
+repair (cuSPARSE's ``torch.mv``, autograd's gradient) four times, once
+under ``torch.use_deterministic_algorithms(True)``, twice with a dense
+``H @ v``, and three times as it is (``lm_cg_solve``)."""
 import os
 import sys
 
@@ -229,3 +237,173 @@ def test_cuda_laplace_map_matches_the_cpu(cuda):
     np.testing.assert_allclose(xg, xc, atol=1e-4)
     np.testing.assert_allclose(cg, cc, rtol=1e-3,
                                atol=1e-3 * np.abs(cc).max())
+
+
+def test_cuda_fixed_order_sums_match_autograd_and_cusparse(cuda):
+    """The banked MAP's gradient and Hessian product, summed in a fixed
+    order, against autograd's gradient and cuSPARSE's ``torch.mv`` at
+    plaza1's first two steps (1e-12 of the largest entry, float64), and
+    the same bits on every repeat."""
+    from nfisam_tpu_torch.io import (graph_file_parser,
+                                     group_nodes_factors_incrementally)
+    from nfisam_tpu_torch.solver import IncrementalGaussNewtonMAP
+    from nfisam_tpu_torch.solver import banked_joint as bj
+
+    nodes, truth, factors = graph_file_parser(chip_smoke.PLAZA1_FG)
+    batches = group_nodes_factors_incrementally(nodes, factors, 5)[:2]
+    m = IncrementalGaussNewtonMAP(device=cuda)
+    m.update([n for ns, _ in batches for n in ns],
+             [f for _, fs in batches for f in fs])
+    banks = m.banks.to_device(cuda, bj.MAP_DTYPE)
+    x = torch.as_tensor(np.concatenate(
+        [np.asarray(truth[v], np.float64)[:v.dim] for v in m.vars]) + 0.01,
+        dtype=bj.MAP_DTYPE, device=cuda)
+    v = torch.randn(x.shape, dtype=x.dtype, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(0))
+    hs = bj.SparseHessian(banks, m.dim)
+    H = hs.at(x)
+    g = torch.func.grad(lambda y: bj._banked_nll(y, banks))(x)
+    assert float((hs.grad(x) - g).abs().max()) <= 1e-12 * float(
+        g.abs().max())
+    hv = torch.mv(H, v)
+    assert float((hs.mv(H, v) - hv).abs().max()) <= 1e-12 * float(
+        hv.abs().max())
+    first = (hs.grad(x), hs.mv(H, v))
+    for _ in range(5):
+        assert torch.equal(hs.grad(x), first[0])
+        assert torch.equal(hs.mv(H, v), first[1])
+
+
+def test_cuda_cli_solve_runs_on_the_card(cuda, tmp_path):
+    """``solve`` with no ``--device`` runs on the card and launches the
+    kernel."""
+    from nfisam_tpu_torch import cli
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+
+    ar_inverse_kernel.launches = 0
+    assert cli.main(["solve", "--fg", chip_smoke.CASE1_FG, "--out",
+                     str(tmp_path), "--iters", "30", "--train-samples",
+                     "300", "--posterior-samples", "200",
+                     "--parallel"]) == 0
+    assert ar_inverse_kernel.launches > 0
+    assert np.isfinite(np.loadtxt(tmp_path / "run1" / "step5")).all()
+
+
+def test_cuda_jax_checkpoint_restores_on_the_card(cuda, tmp_path):
+    """The JAX package's case1 store restores on the card with no clique
+    trained."""
+    import shutil
+
+    ckpt = tmp_path / "ckpt"
+    shutil.copytree(chip_smoke.CASE1_JAX_CKPT, ckpt)
+    _, steps, per_step, _ = chip_smoke.solve_case1(
+        1, cuda, parallel=True, checkpoint_dir=str(ckpt),
+        posterior_sample_num=200)
+    assert [st["trained"] for st in steps] == [0] * 6
+    assert all(st["launches"] > 0 for st in steps)
+    for samples in per_step:
+        assert all(np.isfinite(x).all() for x in samples.values())
+
+
+def _diagnose_map_repeatability(reps: int = 50) -> None:
+    """The C1 diagnosis (module docstring)."""
+    import time
+
+    from nfisam_tpu_torch.io import graph_file_parser
+    from nfisam_tpu_torch.solver import IncrementalGaussNewtonMAP
+    from nfisam_tpu_torch.solver import banked_joint as bj
+
+    dev = torch.device("cuda")
+    log = chip_smoke.log
+    nodes, truth, factors = graph_file_parser(chip_smoke.PLAZA1_FG)
+    m = IncrementalGaussNewtonMAP(device=dev)
+    m.update(nodes, factors)
+    banks = m.banks.to_device(dev, bj.MAP_DTYPE)
+    cpu = torch.Generator().manual_seed(0)
+    x = torch.as_tensor(np.concatenate(
+        [np.asarray(truth[v], np.float64)[:v.dim] for v in m.vars]),
+        dtype=bj.MAP_DTYPE)
+    x = (x + 1e-3 * torch.randn(x.shape, generator=cpu,
+                                dtype=x.dtype)).to(dev)
+    v = torch.randn(x.shape, generator=cpu, dtype=x.dtype).to(dev)
+    hs = bj.SparseHessian(banks, m.dim)
+    autograd = torch.func.grad(lambda y: bj._banked_nll(y, banks))
+    H = hs.at(x)
+    Hd = H.to_dense()
+
+    def repeat(name, fn):
+        ref, bad, worst = fn(), 0, 0.0
+        for _ in range(reps):
+            out = fn()
+            if not torch.equal(out, ref):
+                bad += 1
+                worst = max(worst, float((out - ref).abs().max()))
+        log(f"C1 {name}: {bad} of {reps} repeats differ from the first "
+            f"(max |diff| {worst:.3e})")
+
+    repeat("autograd gradient of the gathers", lambda: autograd(x))
+    repeat("fixed-order gradient", lambda: hs.grad(x))
+    repeat("Hessian assembly", lambda: hs.at(x).values())
+    repeat("cuSPARSE torch.mv", lambda: torch.mv(H, v))
+    repeat("fixed-order CSR product", lambda: hs.mv(H, v))
+    repeat("dense H @ v", lambda: Hd @ v)
+
+    def before_repair(x0, banks, max_iters, dense=False):
+        """``lm_cg_solve`` as it was: autograd's gradient and cuSPARSE's
+        product (or a dense one)."""
+        def nll(y):
+            return bj._banked_nll(y, banks)
+        grad_fn = torch.func.grad(nll)
+        hessian = bj.SparseHessian(banks, x0.shape[0])
+        x, it = x0, 0
+        lam = torch.tensor(bj.MAP_INIT_DAMPING, dtype=x0.dtype,
+                           device=x0.device)
+        f_val = nll(x)
+        while it < max_iters:
+            H = hessian.at(x)
+            if dense:
+                H = H.to_dense()
+            x_new = x + bj.conjugate_gradient(
+                lambda p, H=H, lam=lam: torch.mv(H, p) + lam * p,
+                -grad_fn(x), bj.MAP_CG_ITERS)
+            f_new = nll(x_new)
+            better = f_new < f_val
+            done = better & (torch.abs(f_val - f_new) <
+                             bj.MAP_TOL * (1.0 + torch.abs(f_val)))
+            x = torch.where(better, x_new, x)
+            lam = torch.clamp(torch.where(
+                better, lam * bj.MAP_DAMPING_DOWN,
+                lam * bj.MAP_DAMPING_UP), 1e-10, 1e10)
+            f_val = torch.where(better, f_new, f_val)
+            it += 1
+            if bool(done):
+                break
+        return x, f_val, it
+
+    def floor(label):
+        t0 = time.perf_counter()
+        r = chip_smoke.map_case(chip_smoke.REPEAT_MAP_CASE,
+                                graph_file_parser,
+                                lambda: IncrementalGaussNewtonMAP(device=dev))
+        log(f"C1 floor [{label}]: RMSE {r['rmse']!r} m, NLL {r['nll']!r}, "
+            f"{r['iters']} LM iterations, solve {r['s']:.3f} s "
+            f"({time.perf_counter() - t0:.3f} s with parsing)")
+
+    repaired = bj.lm_cg_solve
+    bj.lm_cg_solve = before_repair
+    for label in ("warm-up", "1", "2", "3"):
+        floor(f"before the repair: {label}")
+    torch.use_deterministic_algorithms(True)
+    floor("before the repair, use_deterministic_algorithms")
+    torch.use_deterministic_algorithms(False)
+    bj.lm_cg_solve = lambda x0, b, n: before_repair(x0, b, n, dense=True)
+    for label in ("1", "2"):
+        floor(f"before the repair with a dense H @ v: {label}")
+    bj.lm_cg_solve = repaired
+    for label in ("1", "2", "3"):
+        floor(f"as it is: {label}")
+
+
+if __name__ == "__main__":
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _diagnose_map_repeatability()

@@ -171,6 +171,15 @@ def test_banked_hvp_matches_jax(banked):
     _close_to_largest(torch.mv(H, v).numpy(), hvp, 1e-4)
 
 
+def test_fixed_order_sums_match_jax(banked):
+    """The gradient and product the LM loop takes (``SparseHessian.grad``
+    and ``.mv``, summed in a fixed order) against the JAX package's."""
+    (_, grad, hvp), banks, x, v = banked
+    hs = tb.SparseHessian(banks, x.shape[0])
+    _close_to_largest(hs.grad(x).numpy(), grad, 1e-4)
+    _close_to_largest(hs.mv(hs.at(x), v).numpy(), hvp, 1e-4)
+
+
 @pytest.mark.parametrize("maxiter", [3, 40, 300])
 def test_conjugate_gradient_matches_jax_cg(maxiter):
     """A fixed SPD operator (condition ~100): after 3 and 40 iterations

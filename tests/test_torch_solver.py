@@ -203,8 +203,16 @@ def test_port_imports_no_jax_and_no_jax_package():
             "nfisam_tpu_torch.solver.map_solver, "
             "nfisam_tpu_torch.samplers.joint, "
             "nfisam_tpu_torch.graph.ordering, "
-            "nfisam_tpu_torch.eval.metrics\n"
+            "nfisam_tpu_torch.eval.metrics, nfisam_tpu_torch.cli, "
+            "nfisam_tpu_torch.solver.run, nfisam_tpu_torch.solver.checkpoint, "
+            "nfisam_tpu_torch.sim, nfisam_tpu_torch.io.g2o, "
+            "nfisam_tpu_torch.core.likelihoods\n"
             "from nfisam_tpu_torch.train import fit_flows_batched\n"
+            "import importlib, pkgutil\n"
+            "for m in pkgutil.walk_packages(nfisam_tpu_torch.__path__, "
+            "'nfisam_tpu_torch.'):\n"
+            "    if m.name != 'nfisam_tpu_torch.__main__':\n"
+            "        importlib.import_module(m.name)\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m in ('jax', 'optax', "
             "'nfisam_tpu', 'bench') or m.startswith(('jax.', 'optax.', "
@@ -224,7 +232,7 @@ def test_solver_without_device_raises_on_a_cpu_only_host():
 
 
 @pytest.mark.parametrize("bad", [dict(elimination_method="minimum_degree"),
-                                 dict(checkpoint_dir="ckpt"),
+                                 dict(pad_dim_multiple=8),
                                  dict(elimination_method="colamd"),
                                  dict(flow_type="RealNVP")])
 def test_unported_options_raise(bad):
