@@ -110,9 +110,39 @@ of JAX or of the JAX package, and exits non-zero if any phase fails:
    clique trained, every posterior mean within 1.0 m of the first run's),
    and ``python -m nfisam_tpu_torch baseline`` and ``mmd`` in
    subprocesses, which must exit 0;
+19. the reference samplers at full width: ``nfisam_tpu_torch.cli.main(
+   ["reference", "--sampler", "nested", ...])`` on the whole case1 graph
+   (22 dims) at the command's defaults (1000 live points, rslice, 25
+   replaced an iteration, dlogz 0.05) for seeds 1-3; gates per seed: logz
+   within max(3.5 logzerr, 0.35) of the brute-force evidence -19.462, the
+   MMD of the translation columns to the committed ``ns_step5.sample``
+   within max(0.12, 1.25x the JAX CLI's worst on the CPU), and the
+   ``--out`` files parse as the JAX CLI's; niter, ncall, eff, wall time
+   and host reads printed; the kernel Stein discrepancy of 1000 of seed
+   1's samples on the card (float32) and on the CPU (float64), which must
+   agree to 1e-4 relative; before it, the samplers' inner evaluations
+   timed eager and replayed from CUDA graphs;
+20. (cut for time, PERF.md §4: ``dynamic_ns_phase``, dynamic nested
+   sampling at the protocol behind ``ns_step5.sample``, runs alone)
+21. ``reference --sampler nuts`` and ``--sampler smc`` on case1 (seed 0):
+   finite samples and the MMD to ``ns_step5.sample`` within 1.25x the JAX
+   CLI's worst over seeds 0-2 on the CPU; then the closed-form Gaussian
+   graph of ``tests/test_samplers.py`` by all three samplers (means atol
+   0.1, variances rtol 0.15) and its ring graph's analytic arc by nested
+   sampling (400 live) and SMC (4000; the NUTS ring oracle is cut for
+   time);
+22. the nested clique-sampling path (``local_sampling_method="nested"``):
+   the loop graph of ``tests/test_solver_e2e.py`` at its settings and
+   gate, then case1's first 3 steps (cut for time) by ``NFiSAM`` at the
+   bench configuration, seed 1; gates: the mean joint MMD over the steps
+   <= 2x the reference run1's (the JAX package meets it on the CPU),
+   kernel launches, and each flow prior's ``unif_to_sample`` through the
+   kernel against the plain inverse at the path's batch of 50 rows;
 
 Each solve's kernel launches are counted from 0 just before it and read
-just after; the kernel line's ``launches`` are lawnmower_4x4's (18).  The output ends with one ``{"kernels": [...]}`` JSON line,
+just after; the kernel line's ``launches`` are lawnmower_4x4's (18); the
+phase-22 case1 solve's are printed and must be > 0.  The output ends
+with one ``{"kernels": [...]}`` JSON line,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -331,6 +361,72 @@ JAX_LAWNMOWER_WORST = 5.256669996679982
 LAWNMOWER_GATE_FACTOR = 1.25
 TPU_LAWNMOWER_RMSE = "3.28 [1.65, 4.21]"
 RERUN_MEAN_GATE_M = 1.0
+
+
+# the reference samplers on case1 (the step-5 graph: 6 SE(2) poses, 2
+# landmarks, 22 dims) through ``cli.main(["reference", ...])`` at the
+# command's defaults (1000 samples; nested: rslice, 25 replaced an
+# iteration, dlogz 0.05).  Gates: nested logz within max(3.5 logzerr,
+# 0.35) of the brute-force evidence (BENCHMARKS.md:203-214, 24M prior
+# draws: -19.462 +- 0.014; tests/test_nested_dynamic.py's rule), and the
+# MMD of the translation columns against the committed nested-sampling
+# posterior ns_step5.sample (``ns_step5_mmd``) within
+# max(NS_PAIR_TOL, 1.25x) the JAX CLI's worst on the CPU (nested, seeds
+# 1-3: ``python tests/test_torch_reference_cli.py``; NUTS and SMC, seeds
+# 0-2: ``python tests/test_torch_nuts_smc.py``); NS_PAIR_TOL is
+# scripts/make_case1_step45_refs.py's seed-pair tolerance
+NS_STEP5 = os.path.join(REF_DIR, "ns_step5.sample")
+CASE1_TRUE_LOGZ = -19.462
+LOGZ_ERR_FACTOR = 3.5
+LOGZ_FLOOR = 0.35
+NS_PAIR_TOL = 0.12
+SAMPLER_GATE_FACTOR = 1.25
+JAX_REFERENCE_MMD_WORST = {"nested": 0.053653769126314324,
+                           "nuts": 0.056412739954757984,
+                           "smc": 0.5176674053363012}
+# dynamic NS at the protocol behind ns_step5.sample
+# (scripts/make_case1_step45_refs.py:80-84), seed 11: ``dynamic_ns_phase``,
+# cut from ``main`` for time (PERF.md §4), run alone from ``python3 -c``.
+# The KSD of KSD_ROWS nested-sampling draws under the case1 joint (a
+# Gaussian kernel of precision I / KSD_BANDWIDTH2), on the card in float32
+# and on the CPU in float64, agreeing to KSD_RTOL
+DYNAMIC_SEED = 11
+DYNAMIC_LIVE = 1200
+DYNAMIC_ITERS = 6000
+KSD_ROWS = 1000
+KSD_BANDWIDTH2 = 4.0
+KSD_RTOL = 1e-4
+# the closed-form Gaussian graph and the ring graph of
+# tests/test_samplers.py, at its settings and tolerances
+ORACLE_RUNS = [("nested", {"live_points": 600, "max_iters": 2500}),
+               ("smc", {"num_samples": 4000}),
+               ("nuts", {"num_samples": 3000, "num_warmup": 500})]
+# (the NUTS ring oracle, 12000 draws of 8 chains, is cut for time:
+# PERF.md §4)
+RING_RUNS = [("nested", {"live_points": 400, "max_iters": 1500}),
+             ("smc", {"num_samples": 4000})]
+ORACLE_MEAN_ATOL = 0.1
+ORACLE_VAR_RTOL = 0.15
+# the nested clique-sampling path: the graph of tests/test_solver_e2e.py's
+# test_nested_clique_training_path at its settings and gate, then case1 by
+# NFiSAM at BENCH_ARGS with local_sampling_method="nested", seed 1, cut to
+# its first NESTED_CASE1_STEPS steps for time (PERF.md §4); gate: mean
+# joint MMD over those steps <= 2x reference run1's over them
+# (MMD_GATE_FACTOR), which the JAX package meets on the CPU (its per-step
+# MMDs, ``python tests/test_torch_nested.py``: JAX_NESTED_CASE1_PER_STEP);
+# ``unif_to_sample`` through the kernel against the plain inverse within
+# UNIF_TOL in the flow's normalized coordinates (a trained flow's spline
+# inverse in float32: up to 2.3e-5 on case1's flow priors, PERF.md)
+CLIQUE_PATH_ARGS = dict(posterior_sample_num=200, local_sample_num=300,
+                        flow_iterations=150, num_knots=6, learning_rate=0.03,
+                        elimination_method="natural", seed=7,
+                        local_sampling_method="nested", mode_repair=False)
+CLIQUE_PATH_GATE_M = 0.3
+NESTED_CASE1_STEPS = 3
+JAX_NESTED_CASE1_PER_STEP = (0.003115918619895512, 0.01339189816177117,
+                             0.015118439277995634, 0.03693024935573878,
+                             0.03652499273192855, 0.04692143332966488)
+UNIF_TOL = 1e-4
 
 
 def lawnmower_argv(seed: int, out: str, ckpt: str = None) -> list:
@@ -926,11 +1022,11 @@ def _ref_block(mat, order, name2dim, names):
     return np.hstack([mat[:, pos[n]:pos[n] + 2] for n in names])
 
 
-def accuracy_gate(per_step, name2dim):
+def accuracy_gate(per_step, name2dim, steps=MMD_STEPS):
     """Joint translation MMD of one solve and of the reference's run1
     against the committed posteriors (dynesty at steps 0-3, nested
     sampling at 4-5), 500-sample subsets from ``default_rng(0)``, averaged
-    over steps.  Returns (ours, reference run1, per-step ours)."""
+    over ``steps``.  Returns (ours, reference run1, per-step ours)."""
     from nfisam_tpu_torch.eval import mmd
 
     rng = np.random.default_rng(0)
@@ -939,7 +1035,7 @@ def accuracy_gate(per_step, name2dim):
         return A[rng.choice(len(A), min(MMD_SUBSET, len(A)), replace=False)]
 
     ours, refs = [], []
-    for step in MMD_STEPS:
+    for step in steps:
         src = "dyn" if step <= 3 else "ns"
         dyn = np.loadtxt(os.path.join(REF_DIR, f"{src}_step{step}.sample"))
         with open(os.path.join(REF_DIR, f"{src}_step{step}_ordering")) as f:
@@ -1045,19 +1141,27 @@ KERNEL_CASES = [
     ("K10 n=1000 sep2", 1000, 16, 8, 10, 1, 2, ()),
     ("d32 h16 K8", 1000, 32, 16, 8, 1, 4, ()),
     ("d64 h32 K8", 1000, 64, 32, 8, 1, 3, ()),
+    # nested clique sampling: a flow prior's unif_to_sample on a batch of
+    # replaced points (8-50 rows) with its observation columns pinned
+    ("ns n=8 sep2", 8, 16, 8, 9, 1, 2, ()),
+    ("ns n=25 sep4", 25, 16, 8, 9, 1, 4, ()),
+    ("ns n=50 sep6", 50, 16, 8, 9, 1, 6, ()),
+    ("ns n=25 sep3 K6", 25, 16, 8, 6, 1, 3, ()),
 ]
 # the shapes the timings are taken at: a case1 root clique's posterior
 # draw (n=1000) and a separator-factor draw in simulation (n=2000), d=16,
 # h=8, K=9, 1 flow, 2 observation columns pinned; the first is the
 # kernel line's; then K=6 (the mode-repair graph's), the d=32 and d=64 dim
-# buckets at n=1000, and every column pinned (no dim step: the launch, the
-# loads and the store alone)
+# buckets at n=1000, every column pinned (no dim step: the launch, the
+# loads and the store alone), and a nested-sampling batch (n=25), where
+# the launch is the cost
 TIMED_CASES = [("timed n=1000 sep2", 1000, 16, 8, 9, 1, 2, ()),
                ("timed K6 n=1000 sep2", 1000, 16, 8, 6, 1, 2, ()),
                ("timed n=2000 sep2", 2000, 16, 8, 9, 1, 2, ()),
                ("timed d32 n=1000 sep2", 1000, 32, 16, 9, 1, 2, ()),
                ("timed d64 n=1000 sep2", 1000, 64, 32, 9, 1, 2, ()),
-               ("timed n=1000 all pinned", 1000, 16, 8, 9, 1, 16, ())]
+               ("timed n=1000 all pinned", 1000, 16, 8, 9, 1, 16, ()),
+               ("timed ns n=25 sep4", 25, 16, 8, 9, 1, 4, ())]
 # cycles of the sleep kernel that holds the stream while a call is queued
 # (~1 ms), so that the events time the device's work alone
 HOLD_CYCLES = 2_000_000
@@ -1923,6 +2027,438 @@ def lawnmower_phase(device) -> int:
     return r["launches"]
 
 
+# --------------------------------------------------------------------------
+# the reference samplers
+# --------------------------------------------------------------------------
+def ring_graph(core, factors):
+    """The range-only graph of ``tests/test_samplers.py`` in the package
+    whose ``core`` and ``factors`` are given: a tight prior on X0, a 5 m
+    range to L1 and a broad prior on L1, so L1's posterior is an arc."""
+    x0, l1 = core.R2Variable("X0"), core.R2Variable("L1")
+    cov = np.eye(2) * 0.01
+    return [x0, l1], [
+        factors.UnaryR2GaussianPriorFactor(x0, np.zeros(2), covariance=cov),
+        factors.R2RangeGaussianLikelihoodFactor(x0, l1, 5.0, 0.2),
+        factors.UnaryR2GaussianPriorFactor(
+            l1, np.array([5.0, 0.0]), covariance=np.eye(2) * 9.0)]
+
+
+def gaussian_graph(core, factors):
+    """X0 -- X1 with an extra (cycle-forming) prior on X1
+    (``tests/test_samplers.py``).  Returns (variables, factors, closed-form
+    (mean, covariance))."""
+    from nfisam_tpu_torch.eval import gaussian_displacement_graph_moments
+
+    x0, x1 = core.R2Variable("X0"), core.R2Variable("X1")
+    cov = np.eye(2) * 0.5
+    fs = [factors.UnaryR2GaussianPriorFactor(x0, np.zeros(2), covariance=cov),
+          factors.R2RelativeGaussianLikelihoodFactor(
+              x0, x1, np.array([2.0, 1.0]), covariance=cov),
+          factors.UnaryR2GaussianPriorFactor(x1, np.array([2.5, 1.0]),
+                                             covariance=cov)]
+    moments = gaussian_displacement_graph_moments(
+        [x0, x1], {(x0, x1): (np.array([2.0, 1.0]), cov)},
+        {x0: (np.zeros(2), cov), x1: (np.array([2.5, 1.0]), cov)})
+    return [x0, x1], fs, moments
+
+
+def ring_errors(s) -> dict:
+    """The ring posterior's statistics minus the analytic arc's
+    (``tests/test_samplers.py``: radius 5 +- 0.2, E[cos th] = 0.792,
+    E[sin th] = 0, std(th) = 0.697) and their bounds there."""
+    d = s[:, 2:] - s[:, :2]
+    r = np.linalg.norm(d, axis=1)
+    th = np.arctan2(d[:, 1], d[:, 0])
+    return {"r mean": (abs(r.mean() - 5.0), 0.15),
+            "r std": (abs(r.std() - 0.2), 0.1),
+            "cos mean": (abs(np.cos(th).mean() - 0.792), 0.06),
+            "sin mean": (abs(np.sin(th).mean()), 0.06),
+            "th std": (abs(th.std() - 0.697), 0.1)}
+
+
+def ns_step5_mmd(samples, dims) -> float:
+    """MMD of the translation columns of ``samples`` (columns of the
+    variables ``dims`` [(name, dim)], in order) against the committed
+    nested-sampling posterior ``ns_step5.sample``, both cut to 500-row
+    subsets with one ``default_rng(0)``, ours first, as
+    scripts/make_case1_step45_refs.py picks them."""
+    from nfisam_tpu_torch.eval import mmd
+
+    ref = np.loadtxt(NS_STEP5)
+    with open(NS_STEP5.replace(".sample", "_ordering")) as f:
+        order = f.read().split()
+    name2dim = dict(dims)
+    names = [n for n, _ in dims]
+    ours, col = [], 0
+    for _, d in dims:
+        ours.append(np.asarray(samples)[:, col:col + 2])
+        col += d
+    rng = np.random.default_rng(0)
+
+    def pick(A):
+        return A[rng.choice(len(A), min(MMD_SUBSET, len(A)), replace=False)]
+
+    return float(mmd(pick(np.hstack(ours)),
+                     pick(_ref_block(ref, order, name2dim, names))))
+
+
+def run_reference(sampler: str, seed: int, device, out: str,
+                  samples: int = 1000) -> dict:
+    """``cli.main(["reference", ...])`` on case1 at the command's
+    defaults (``samples`` 1000).  Returns {"s" wall, "summary" (the
+    printed dict), "samples", "order" (the ``_ordering`` file's names),
+    "host_reads" by kind}."""
+    import ast
+    import contextlib
+    import io
+
+    from nfisam_tpu_torch import cli
+    from nfisam_tpu_torch.samplers.nested import HOST_READS
+
+    argv = ["reference", "--fg", CASE1_FG, "--sampler", sampler,
+            "--samples", str(samples), "--seed", str(seed), "--out", out]
+    if torch.device(device).type != "cuda":
+        argv += ["--device", str(device)]
+    HOST_READS.clear()
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise SystemExit(f"reference --sampler {sampler} exited {rc}")
+    line = text.getvalue().splitlines()[0]
+    with open(out + "_ordering") as f:
+        order = f.read().split()
+    return {"s": wall, "summary": ast.literal_eval(line.split("; ", 1)[1]),
+            "samples": np.loadtxt(out, ndmin=2), "order": order,
+            "host_reads": dict(HOST_READS)}
+
+
+def reference_gate(label: str, r: dict, dims, bound: float,
+                   logz: bool) -> float:
+    """The gates of one reference run: parsed artifacts of the case1
+    joint's shape and order, finite samples, the MMD to ns_step5 within
+    ``bound`` and, for nested sampling, logz near the brute-force
+    evidence.  Returns the MMD."""
+    names = [n for n, _ in dims]
+    x = r["samples"]
+    if r["order"] != names or x.shape[1] != sum(d for _, d in dims):
+        raise SystemExit(f"{label}: the --out files do not parse as the "
+                         f"JAX CLI's ({x.shape}, {r['order']})")
+    if not np.isfinite(x).all():
+        raise SystemExit(f"{label}: non-finite samples")
+    m = ns_step5_mmd(x, dims)
+    summ = r["summary"]
+    msg = (f"{label}: {x.shape[0]} samples in {r['s']:.3f} s, MMD to "
+           f"ns_step5 {m:.4f} (<= {bound:.4f}); {summ}; host reads "
+           f"{r['host_reads']}")
+    if logz:
+        err = abs(summ["logz"] - CASE1_TRUE_LOGZ)
+        tol = max(LOGZ_ERR_FACTOR * summ["logzerr"], LOGZ_FLOOR)
+        reads = r["host_reads"]
+        msg += (f"; |logz - ({CASE1_TRUE_LOGZ})| = {err:.4f} (<= "
+                f"{tol:.4f}); host reads an iteration "
+                f"{sum(reads.values()) / reads.get('ns_iteration', 1):.2f}")
+        log(msg)
+        if not err <= tol:
+            raise SystemExit(f"{label}: logz off the brute-force evidence")
+    else:
+        log(msg)
+    if not m <= bound:
+        raise SystemExit(f"{label}: MMD to ns_step5 above its bound")
+    return m
+
+
+def case1_dims():
+    from nfisam_tpu_torch.io import graph_file_parser
+
+    nodes, _, factors = graph_file_parser(CASE1_FG)
+    return nodes, factors, [(str(v.name), v.dim) for v in nodes]
+
+
+def time_sampler_evals(device) -> None:
+    """The samplers' inner evaluations on the case1 joint, eager and
+    replayed from a CUDA graph (median ms of CUDA-event-timed calls):
+    nested sampling's batch of 25 ``loglike(ptform(u))``, and NUTS's
+    value and gradient at 4 chains by ``log_pdf`` and by factor banks,
+    and a NUTS subtree.  Card numbers only: nothing on another device."""
+    if torch.device(device).type != "cuda":
+        return
+    from nfisam_tpu_torch.samplers import GlobalMCMCSampler
+    from nfisam_tpu_torch.factors.factors import value_and_grad_rows
+    from nfisam_tpu_torch.utils.cuda_graph import CudaGraphed
+
+    nodes, factors, _ = case1_dims()
+    joint = GlobalMCMCSampler(nodes, factors, device=device).joint
+    u = torch.rand((25, joint.dim), device=device)
+    q = joint.sample(np.array([0, 1], np.uint32), 4, device)
+    banked = GlobalMCMCSampler(nodes, factors, device=device).log_density()
+    fns = {"NS batch of 25": (lambda u: joint.loglike(joint.ptform(u)), u),
+           "NUTS value and gradient, log_pdf": (
+               lambda q: value_and_grad_rows(joint.log_pdf, q), q),
+           "NUTS value and gradient, banks": (
+               lambda q: value_and_grad_rows(banked, q), q)}
+    for name, (fn, x) in fns.items():
+        graphed = CudaGraphed(fn)
+        eager_ms = time_cuda(lambda: fn(x), repeats=20)
+        graph_ms = time_cuda(lambda: graphed(x), repeats=20)
+        log(f"{name} on case1: eager {eager_ms:.4f} ms a call, CUDA graph "
+            f"{graph_ms:.4f} ms")
+    # a NUTS subtree of 32 leapfrog steps at 4 chains, by banks
+    from nfisam_tpu_torch.samplers.nuts import _subtree
+
+    run = _subtree(banked, 8)
+    lp, g = value_and_grad_rows(banked, q)
+    p = torch.randn_like(q)
+    args = (q, p, g, lp, torch.full((4, 1), 0.02, device=device),
+            torch.ones((4, 1), device=device), torch.ones(q.shape[1],
+                                                          device=device),
+            torch.rand((32, 4), device=device), torch.zeros(4, device=device),
+            torch.zeros(4, device=device))
+    graphed = CudaGraphed(run)
+    eager_ms = time_cuda(lambda: run(*args), warmup=2, repeats=5)
+    graph_ms = time_cuda(lambda: graphed(*args), warmup=4, repeats=10)
+    log(f"NUTS subtree of 32 steps on case1: eager {eager_ms:.4f} ms, CUDA "
+        f"graph {graph_ms:.4f} ms ({graph_ms / 32:.4f} ms a step)")
+
+
+def reference_nested_phase(device, samples: int = 1000) -> None:
+    """Phase 19: ``reference --sampler nested`` on case1 for seeds 1-3."""
+    import tempfile
+
+    from nfisam_tpu_torch.samplers import StructuredJointFactor
+
+    time_sampler_evals(device)
+    nodes, factors, dims = case1_dims()
+    bound = max(NS_PAIR_TOL, SAMPLER_GATE_FACTOR *
+                JAX_REFERENCE_MMD_WORST["nested"])
+    with tempfile.TemporaryDirectory() as tmp:
+        for seed in SEEDS:
+            r = run_reference("nested", seed, device,
+                              os.path.join(tmp, f"ns{seed}.txt"), samples)
+            reference_gate(f"reference --sampler nested seed {seed}", r,
+                           dims, bound, logz=True)
+            if seed == SEEDS[0]:
+                ksd_check(StructuredJointFactor(factors, nodes),
+                          r["samples"], device,
+                          f"reference --sampler nested seed {seed}")
+
+
+def dynamic_ns_phase(device, seed: int = DYNAMIC_SEED) -> None:
+    """Dynamic NS on case1 at the ns_step5.sample protocol, its gates,
+    and the KSD of its samples on the card and on the CPU (cut from
+    ``main`` for time)."""
+    from nfisam_tpu_torch.samplers import GlobalNestedSampler
+    from nfisam_tpu_torch.samplers.nested import HOST_READS
+
+    nodes, factors, dims = case1_dims()
+    HOST_READS.clear()
+    summ = {}
+    t0 = time.perf_counter()
+    sampler = GlobalNestedSampler(nodes, factors, device=device)
+    x = sampler.sample(key=np.array([0, seed], np.uint32),
+                       live_points=DYNAMIC_LIVE, max_iters=DYNAMIC_ITERS,
+                       dynamic=True, res_summary=summ)
+    wall = time.perf_counter() - t0
+    r = {"s": wall, "summary": summ, "samples": x,
+         "order": [n for n, _ in dims], "host_reads": dict(HOST_READS)}
+    reference_gate(f"dynamic NS seed {seed} ({DYNAMIC_LIVE} live, "
+                   f"<= {DYNAMIC_ITERS} iterations)", r, dims,
+                   max(NS_PAIR_TOL, SAMPLER_GATE_FACTOR *
+                       JAX_REFERENCE_MMD_WORST["nested"]), logz=True)
+    ksd_check(sampler.joint, x, device, "dynamic-NS")
+
+
+def ksd_check(joint, x, device, label: str) -> None:
+    """The KSD of KSD_ROWS rows of ``x`` under ``joint``: on the card in
+    float32 and on the CPU in float64 (the score is the joint's float32
+    gradient on each device); the U statistics must agree to KSD_RTOL."""
+    from nfisam_tpu_torch.eval import gaussian_kernel_stein_discrepancy
+
+    rows = x[np.random.default_rng(0).choice(len(x), KSD_ROWS,
+                                             replace=False)]
+    P = np.eye(x.shape[1]) / KSD_BANDWIDTH2
+    t0 = time.perf_counter()
+    card = gaussian_kernel_stein_discrepancy(
+        joint, P, torch.as_tensor(rows, device=device))
+    card_s = time.perf_counter() - t0
+    cpu = gaussian_kernel_stein_discrepancy(
+        joint, P, torch.as_tensor(rows), dtype=torch.float64)
+    rel = abs(card[0] - cpu[0]) / max(abs(cpu[0]), 1e-30)
+    log(f"KSD of {KSD_ROWS} {label} samples: card float32 U {card[0]!r} V "
+        f"{card[3]!r} p {card[1]} ({card_s:.3f} s); CPU float64 U "
+        f"{cpu[0]!r} V {cpu[3]!r} p {cpu[1]}; relative difference of U "
+        f"{rel:.3e} (<= {KSD_RTOL})")
+    if not (np.isfinite([card[0], cpu[0]]).all() and rel <= KSD_RTOL):
+        raise SystemExit("KSD: the card and the CPU disagree")
+
+
+def sampler_by_name(name: str):
+    from nfisam_tpu_torch.samplers import (GlobalMCMCSampler,
+                                           GlobalNestedSampler,
+                                           GlobalSMCSampler)
+    return {"nested": GlobalNestedSampler, "nuts": GlobalMCMCSampler,
+            "smc": GlobalSMCSampler}[name]
+
+
+def nuts_smc_phase(device, samples: int = 1000) -> None:
+    """Phase 21: ``reference --sampler nuts`` and ``smc`` on case1 (seed
+    0), then the closed-form Gaussian graph for all three samplers and
+    the ring graph's arc for NS and SMC."""
+    import tempfile
+
+    import nfisam_tpu_torch.core as core
+    import nfisam_tpu_torch.factors as factors
+
+    _, _, dims = case1_dims()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("nuts", "smc"):
+            r = run_reference(name, 0, device, os.path.join(tmp, name),
+                              samples)
+            reference_gate(f"reference --sampler {name} seed 0", r, dims,
+                           SAMPLER_GATE_FACTOR *
+                           JAX_REFERENCE_MMD_WORST[name], logz=False)
+    vars_, fs, (mu, Sigma) = gaussian_graph(core, factors)
+    for name, kw in ORACLE_RUNS:
+        t0 = time.perf_counter()
+        s = sampler_by_name(name)(vars_, fs, device=device).sample(**kw)
+        mean_err = float(np.abs(s.mean(0) - mu).max())
+        var_err = float(np.abs(np.diag(np.cov(s.T)) / np.diag(Sigma) -
+                               1).max())
+        log(f"closed-form Gaussian graph, {name} {kw}: "
+            f"{time.perf_counter() - t0:.3f} s, mean error {mean_err:.4f} "
+            f"(<= {ORACLE_MEAN_ATOL}), relative variance error "
+            f"{var_err:.4f} (<= {ORACLE_VAR_RTOL})")
+        if not (mean_err <= ORACLE_MEAN_ATOL and var_err <= ORACLE_VAR_RTOL):
+            raise SystemExit(f"{name}: off the closed-form posterior")
+    vars_, fs = ring_graph(core, factors)
+    for name, kw in RING_RUNS:
+        t0 = time.perf_counter()
+        s = sampler_by_name(name)(vars_, fs, device=device).sample(**kw)
+        errs = ring_errors(s)
+        log(f"ring graph, {name} {kw}: {time.perf_counter() - t0:.3f} s, "
+            f"{ {k: round(e, 4) for k, (e, _) in errs.items()} } (bounds "
+            f"{ {k: b for k, (_, b) in errs.items()} })")
+        if any(e > b for e, b in errs.values()):
+            raise SystemExit(f"{name}: off the ring's analytic arc")
+
+
+def clique_path_graph(core, factors, solver, device):
+    """The graph of ``test_nested_clique_training_path`` through
+    ``solver`` (``run_incremental``): an extra prior closes a loop, so the
+    clique's joint needs the nested sampler."""
+    xs = [core.R2Variable(f"X{i}") for i in range(2)]
+    cov = np.eye(2) * 0.25
+    fs = [factors.UnaryR2GaussianPriorFactor(xs[0], np.zeros(2),
+                                             covariance=cov),
+          factors.R2RelativeGaussianLikelihoodFactor(
+              xs[0], xs[1], np.array([1.0, 1.0]), covariance=cov),
+          factors.UnaryR2GaussianPriorFactor(
+              xs[1], np.array([1.2, 1.0]), covariance=cov)]
+    return run_incremental(solver, [(xs, fs)], device)
+
+
+def flow_prior_check(solver, n: int) -> tuple:
+    """Each ``FlowsPriorFactor`` the solver pushed up its tree:
+    ``unif_to_sample`` of n unit-cube rows through the kernel against the
+    same map through the plain inverse, on the card, compared as the
+    kernel check compares them: in the flow's normalized coordinates
+    (the samples less the flow's mean, over its std; angles wrapped),
+    within atol + rtol KERNEL_TOL.  Returns (worst normalized |kernel -
+    plain|, factors checked)."""
+    from nfisam_tpu_torch.core.geometry import wrap_angle
+    from nfisam_tpu_torch.flows import stack_inverse_masked_plain
+    from nfisam_tpu_torch.solver.nfisam import FlowsPriorFactor
+
+    worst, checked = 0.0, 0
+    rng = np.random.default_rng(0)
+    for f in solver._implicit_factors.values():
+        if not isinstance(f, FlowsPriorFactor):
+            continue
+        m, sep = f._flow_model, f._obs_dim
+        u = torch.as_tensor(rng.uniform(0.01, 0.99, (n, f.dim)).astype(
+            np.float32), device=solver.device)
+        got = f.unif_to_sample(u)
+        ref = f._unif_to_sample(u, stack_inverse_masked_plain)
+        mean, std = m.mean[sep:sep + f.dim], m.std[sep:sep + f.dim]
+        circ = m.circ_mask[sep:sep + f.dim]
+        diff = torch.where(circ, wrap_angle(got - ref), got - ref) / std
+        ref_n = torch.where(circ, wrap_angle(ref - mean), ref - mean) / std
+        err = float(diff.abs().max())
+        bad = diff.abs() > UNIF_TOL + UNIF_TOL * ref_n.abs()
+        if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+            raise SystemExit(f"unif_to_sample through the kernel disagrees "
+                             f"with the plain inverse on {f}: normalized "
+                             f"max |diff| {err:.3e}, {int(bad.sum())} "
+                             f"entries beyond the tolerance")
+        worst = max(worst, err)
+        checked += 1
+    return worst, checked
+
+
+def nested_clique_phase(device, steps: int = NESTED_CASE1_STEPS):
+    """Phase 22: the nested clique-sampling path, kernel launches counted
+    from 0 just before each solve.  Returns the case1 solver."""
+    import nfisam_tpu_torch.core as core
+    import nfisam_tpu_torch.factors as factors
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+    from nfisam_tpu_torch.samplers.nested import HOST_READS
+    from nfisam_tpu_torch.solver import NFiSAM, NFiSAMArgs
+
+    solver = NFiSAM(NFiSAMArgs(**CLIQUE_PATH_ARGS), device=device)
+    st, per_step = clique_path_graph(core, factors, solver, device)
+    m1 = per_step[-1]["X1"].mean(0)
+    err = float(np.linalg.norm(m1 - np.array([1.1, 1.0])))
+    log(f"nested clique path, the loop graph by NFiSAM: {st[0]['s']:.3f} s, "
+        f"X1 mean {np.round(m1, 4).tolist()}, |X1 mean - (1.1, 1.0)| "
+        f"{err:.4f} m (<= {CLIQUE_PATH_GATE_M})")
+    if not err <= CLIQUE_PATH_GATE_M:
+        raise SystemExit("nested clique path: the loop graph's mean is off")
+
+    from nfisam_tpu_torch.io import group_nodes_factors_incrementally
+
+    nodes, factors_, _ = case1_dims()
+    name2dim = {str(v.name): v.dim for v in nodes}
+    batches = group_nodes_factors_incrementally(nodes, factors_, 1)[:steps]
+    solver = NFiSAM(NFiSAMArgs(**{**BENCH_ARGS, "seed": SEEDS[0],
+                                  "local_sampling_method": "nested"}),
+                    device=device)
+    HOST_READS.clear()
+    ar_inverse_kernel.launches = 0
+    steps_t, per_step = run_incremental(solver, batches, device)
+    launches = ar_inverse_kernel.launches
+    total = sum(st["s"] for st in steps_t)
+    log(f"case1 NFiSAM nested clique sampling seed {SEEDS[0]}: total "
+        f"{total:.3f} s, ar_inverse launches {launches}, host reads "
+        f"{dict(HOST_READS)}")
+    log_steps(steps_t)
+    for step, samples in enumerate(per_step):
+        check_finite(samples, f"case1 nested step {step}")
+    ours, ref, per = accuracy_gate(per_step, name2dim,
+                                   MMD_STEPS[:len(per_step)])
+    jax_mmd = float(np.mean(JAX_NESTED_CASE1_PER_STEP[:len(per_step)]))
+    bound = MMD_GATE_FACTOR * ref
+    if jax_mmd > bound:
+        bound = SAMPLER_GATE_FACTOR * jax_mmd
+    log(f"case1 nested clique sampling, steps 0-{len(per_step) - 1}: mean "
+        f"joint MMD {ours:.4f} (<= {bound:.4f}; the JAX package on the CPU "
+        f"{jax_mmd:.4f}), per step {[round(x, 4) for x in per]}")
+    if launches == 0:
+        raise SystemExit("the nested clique path never launched the "
+                         "ar_inverse kernel")
+    if not ours <= bound:
+        raise SystemExit("case1 nested clique sampling: accuracy gate "
+                         "failed")
+    n = max(BENCH_ARGS["local_sample_num"] // 40, 8)
+    worst, checked = flow_prior_check(solver, n)
+    log(f"unif_to_sample at n={n} through the kernel vs the plain inverse "
+        f"on {checked} flow priors: normalized max |diff| {worst:.3e}")
+    if checked == 0:
+        raise SystemExit("no flow prior to check unif_to_sample on")
+    return solver, launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1993,6 +2529,12 @@ def main() -> int:
     elapsed()
     entry["launches"] = lawnmower_phase(device)
     elapsed()
+    reference_nested_phase(device)
+    elapsed()
+    nuts_smc_phase(device)
+    elapsed()
+    nested_solver, _ = nested_clique_phase(device)
+    elapsed()
 
     finals = [("case1 NFiSAM", seq_solver),
               ("case1 ParallelNFiSAM", par_solver),
@@ -2008,6 +2550,7 @@ def main() -> int:
     finals.append(("manhattan g8", manhattan_solver))
     finals.append(("eight-node chain", eight_node_solver))
     finals.append(("case1 from the JAX store", restored_solver))
+    finals.append(("case1 nested clique sampling", nested_solver))
     for label, solver in finals:
         rel, fused_s, walk_s = fused_vs_per_clique(solver)
         log(f"{label}: fused pass vs per-clique walk on the final state, "

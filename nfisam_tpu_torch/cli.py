@@ -3,15 +3,15 @@
   python -m nfisam_tpu_torch solve     --fg graph.fg --out runs/ [knobs]
   python -m nfisam_tpu_torch simulate  --grid 4x4 --cell 20 --out graph.fg
   python -m nfisam_tpu_torch baseline  --fg graph.fg   (MAP + Laplace)
+  python -m nfisam_tpu_torch reference --fg graph.fg --sampler nested|nuts|smc
   python -m nfisam_tpu_torch mmd       A.txt B.txt     (quality metric)
 
 The JAX package's commands and flags (``nfisam_tpu/cli.py``), with
-``--device`` in place of ``--platform`` and ``--compile-cache``: solve
-and baseline run on ``cuda`` unless ``--device`` names another, and exit
-non-zero when there is no card.  Any flag may also come from ``--config
-config.json`` (flags win).  Not ported: ``reference`` (the nested, NUTS
-and SMC samplers, ROADMAP A18) and ``solve --plot`` (ROADMAP A20); both
-exit with code 2.
+``--device`` in place of ``--platform`` and ``--compile-cache``: solve,
+baseline and reference run on ``cuda`` unless ``--device`` names
+another, and exit non-zero when there is no card.  Any flag may also come
+from ``--config config.json`` (flags win).  Not ported: ``solve --plot``
+(ROADMAP A20), which exits with code 2.
 """
 from __future__ import annotations
 
@@ -199,8 +199,44 @@ def cmd_baseline(argv):
 
 
 def cmd_reference(argv):
-    return _not_ported("reference: the nested, NUTS and SMC samplers are "
-                        "not ported (ROADMAP A18)")
+    parser = argparse.ArgumentParser(prog="nfisam_tpu_torch reference")
+    parser.add_argument("--fg", required=True)
+    parser.add_argument("--format", default="fg")
+    parser.add_argument("--sampler", default="nested",
+                        choices=["nested", "nuts", "smc"])
+    parser.add_argument("--samples", type=int, default=1000)
+    parser.add_argument("--out", default=None)
+    parser.add_argument("--seed", type=int, default=0)
+    _add_common(parser)
+    args = _merge_config(parser.parse_args(argv), parser)
+    device = _device(args)
+
+    from .io import graph_file_parser
+    nodes, truth, factors = graph_file_parser(args.fg, args.format)
+    key = np.array([0, args.seed], dtype=np.uint32)
+    summary = {}
+    t0 = time.time()
+    if args.sampler == "nested":
+        from .samplers import GlobalNestedSampler
+        s = GlobalNestedSampler(nodes, factors, device=device).sample(
+            key=key, live_points=args.samples, res_summary=summary)
+    elif args.sampler == "nuts":
+        from .samplers import GlobalMCMCSampler
+        sampler = GlobalMCMCSampler(nodes, factors, device=device)
+        s = sampler.sample(key=key, num_samples=args.samples)
+        summary = sampler.diagnostics
+    else:
+        from .samplers import GlobalSMCSampler
+        s = GlobalSMCSampler(nodes, factors, device=device).sample(
+            key=key, num_samples=args.samples, summary=summary)
+    print(f"{args.sampler}: {s.shape[0]} samples in "
+          f"{time.time() - t0:.1f} s; {summary}")
+    if args.out:
+        np.savetxt(args.out, s)
+        with open(args.out + "_ordering", "w") as f:
+            f.write(" ".join(str(v.name) for v in nodes))
+        print(f"wrote -> {args.out}")
+    return 0
 
 
 def cmd_mmd(argv):

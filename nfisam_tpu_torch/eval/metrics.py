@@ -3,10 +3,12 @@ and its variants, point-estimate errors, the alignments the scale
 runners judge a posterior in, and the closed forms of a linear-Gaussian
 displacement graph that exact-posterior tests check against.
 
-Counterpart of ``nfisam_tpu/eval/metrics.py`` (all but the kernel Stein
-discrepancy), as host numpy in float64: pairwise squared distances are
-taken as direct differences, so coordinates of O(100 m) lose nothing to
-cancellation.
+Counterpart of ``nfisam_tpu/eval/metrics.py``, as host numpy in float64:
+pairwise squared distances are taken as direct differences, so
+coordinates of O(100 m) lose nothing to cancellation.  The kernel Stein
+discrepancy takes its pairwise products as tensors on the samples'
+device, in float32 at full precision (as the JAX package's
+``Precision.HIGHEST``; no TF32) or in a dtype the caller names.
 """
 from __future__ import annotations
 
@@ -304,3 +306,42 @@ def gaussian_displacement_graph_evidence(joint) -> float:
         raise ValueError("the observation covariance is not positive "
                          "definite")
     return float(-0.5 * (logdet + resid @ np.linalg.solve(C, resid)))
+
+
+def gaussian_kernel_stein_discrepancy(joint_factor, kernel_precision,
+                                      samples, nboot: int = 10,
+                                      seed: int = 0, dtype=None):
+    """Gaussian-kernel KSD of ``samples`` (n, d) under ``joint_factor``'s
+    density, with a multinomial bootstrap: (U-statistic, bootstrap
+    p-value, the (n, n) off-diagonal Stein kernel matrix as numpy,
+    V-statistic).  The score is the joint's float32 gradient on the
+    samples' device; the pairwise products are taken in ``dtype``
+    (default float32) there; the bootstrap is host numpy."""
+    X = torch.as_tensor(samples)
+    dtype = dtype or torch.float32
+    score = joint_factor.grad_x_log_pdf(X.to(torch.float32)).to(dtype)
+    X = X.to(dtype)
+    P = torch.as_tensor(np.asarray(kernel_precision), dtype=dtype,
+                        device=X.device)
+    n = X.shape[0]
+    diff = X[:, None, :] - X[None, :, :]                      # (n, n, d)
+    maha = torch.einsum("ijd,de,ije->ij", diff, P, diff)
+    KXX = torch.exp(-maha / 2)
+    grad_i = -torch.einsum("de,ije->ijd", P, diff)          # dk wrt x_i
+    p1 = score @ score.T
+    p2 = torch.einsum("id,ijd->ij", score, -grad_i)
+    p3 = torch.einsum("jd,ijd->ij", score, grad_i)
+    # trace(grad_i grad_j^T + P) with grad_j = -grad_i
+    p4 = torch.trace(P) - torch.einsum("ijd,ijd->ij", grad_i, grad_i)
+    raw = (p1 + p2 + p3 + p4) * KXX
+    off = raw - torch.diag(torch.diag(raw))
+    ustats = float(torch.sum(off) / (n * (n - 1)))
+    vstats = float(torch.sum(raw) / n ** 2)
+    rng = np.random.default_rng(seed)
+    boot = np.zeros(nboot)
+    off_np = off.cpu().numpy()
+    for i in range(nboot):
+        w = (rng.multinomial(n, np.ones(n) / n) / n).reshape(-1, 1)
+        boot[i] = ((w.T - 1 / n) @ off_np @ (w - 1 / n)).item()
+    p_u = float((boot >= ustats).mean())
+    return ustats, p_u, off_np, vstats

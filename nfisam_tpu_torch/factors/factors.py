@@ -10,6 +10,12 @@ device.  The ``.fg`` grammar is the JAX package's, dispatched through a
 registry: a line naming a type that is not registered raises.  Two types
 have no text form in either package: the JAX package's mixture prior
 prints no weights, and its slip/grip factor prints nothing.
+
+Gradients (``grad_x_log_pdf``) exist where the JAX package has them: the
+hand-derived ones by the same formula, the others through
+``torch.autograd.grad`` of the sum over rows (the rows decouple), as the
+JAX package's ``jax.grad``.  ``loglike_rows`` is ``evaluate_loglike`` for
+every row of an ``(n, d)`` batch, with the same per-row rule.
 """
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ import torch
 from ..core import geometry as geom
 from ..core.distributions import (LOG_TWO_PI, GaussianDistribution,
                                   GaussianRangeDistribution, HostConstants,
-                                  gaussian_log_pdf, norm_ppf, spd_sqrt)
+                                  gaussian_grad_log_pdf, gaussian_log_pdf,
+                                  norm_ppf, spd_sqrt)
 from ..core.variables import (Bearing2DVariable, R1Variable, R2Variable,
                               SE2Variable, Variable, VariableType,
                               circular_dim_list)
@@ -70,6 +77,22 @@ def _tokens(cls, line: str) -> List[str]:
     return tok
 
 
+def value_and_grad_rows(fn, x: torch.Tensor):
+    """(fn(x), its gradient at every row of ``x`` (n, d)) for a rowwise
+    ``fn``: the gradient of its sum over rows, the rows being
+    independent."""
+    with torch.enable_grad():
+        x = x.detach().requires_grad_(True)
+        val = fn(x)
+        (g,) = torch.autograd.grad(val.sum(), x)
+    return val.detach(), g
+
+
+def grad_rows(log_density, x: torch.Tensor) -> torch.Tensor:
+    """The gradient of a rowwise log density at every row of ``x``."""
+    return value_and_grad_rows(log_density, x)[1]
+
+
 def _uniform(gen: torch.Generator, shape, low: float, high: float,
              device) -> torch.Tensor:
     return low + (high - low) * torch.rand(shape, generator=gen,
@@ -97,9 +120,25 @@ class Factor(HostConstants, ABC):
     def log_pdf(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
+    def log_ancestral_density(self, x: torch.Tensor,
+                              var1_sampled: bool = True) -> torch.Tensor:
+        """Log density of the measure ``sample`` / ``unif_to_sample`` draw
+        from when this factor is an ancestral (tree) edge: ``log_pdf``,
+        but for the ring-drawn range factors."""
+        return self.log_pdf(x)
+
+    def grad_x_log_pdf(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError(
+            f"{type(self).__name__} has no gradient (nor in the JAX "
+            f"package)")
+
+    def loglike_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """(n, d) -> (n,): ``evaluate_loglike`` of every row."""
+        return self.log_pdf(x)
+
     def evaluate_loglike(self, x: torch.Tensor) -> torch.Tensor:
         """Log-likelihood at one flattened location ``x`` (dim,)."""
-        return self.log_pdf(x.reshape(1, -1))[0]
+        return self.loglike_rows(x.reshape(1, -1))[0]
 
     # ---------------------------------------------------------------- text
     @classmethod
@@ -248,6 +287,9 @@ class UnarySE2ApproximateGaussianPriorFactor(_SE2GaussianNoise, PriorFactor,
                                     self._const("prec_chol", x.device),
                                     float(self.log_norm))
 
+    def grad_x_log_pdf(self, x):
+        return grad_rows(self.log_pdf, x)
+
     def __str__(self):
         vals = [str(self.vars[0].name)] + [str(v) for v in self.prior_pose] + \
             ["covariance"] + [str(v) for v in self.covariance.reshape(-1)]
@@ -317,6 +359,10 @@ class UnaryR2GaussianPriorFactor(PriorFactor, UnaryFactor):
         return gaussian_log_pdf(x - self._const("mu", x.device),
                                 self._const("prec_chol", x.device),
                                 float(self.log_norm))
+
+    def grad_x_log_pdf(self, x):
+        return gaussian_grad_log_pdf(x, self._const("mu", x.device),
+                                     self._const("precision", x.device))
 
     def __str__(self):
         c = self.covariance
@@ -405,6 +451,9 @@ class SE2RelativeGaussianLikelihoodFactor(_SE2GaussianNoise,
         return _se2_wrapped_log_pdf(geom.se2_compose(inv, rel),
                                     self._const("prec_chol", x.device),
                                     float(self.log_norm))
+
+    def grad_x_log_pdf(self, x):
+        return grad_rows(self.log_pdf, x)
 
     def __str__(self):
         vals = [str(self.var1.name), str(self.var2.name)] + \
@@ -506,11 +555,38 @@ class _RangeFactorBase(LikelihoodFactor, BinaryFactor):
         return (-0.5 * delta ** 2 / self.variance
                 - 0.5 * LOG_TWO_PI - math.log(self.sigma))
 
-    def evaluate_loglike(self, x):
-        x = x.reshape(-1)
+    def log_ancestral_density(self, x, var1_sampled: bool = True):
+        """Density of the ring draw: Gaussian radius times uniform angle,
+        N(rho; r, sigma) / (2 pi rho) in the drawn endpoint's plane (the
+        polar Jacobian ``log_pdf`` lacks), and a uniform heading's
+        -log(2 pi) when that endpoint is SE(2).  ``var1_sampled`` names
+        the known endpoint, so the drawn one is var2 when it is True."""
         d1 = self.var1.dim
-        delta = torch.linalg.vector_norm(x[:2] - x[d1:d1 + 2]) - \
-            float(self.obs[0])
+        rho = torch.clamp(torch.linalg.vector_norm(
+            x[:, d1:d1 + 2] - x[:, :2], dim=1), min=1e-8)
+        target = self.var2 if var1_sampled else self.var1
+        out = self.log_pdf(x) - torch.log(_TWO_PI * rho)
+        if target.dim == 3:
+            out = out - math.log(_TWO_PI)
+        return out
+
+    def grad_x_log_pdf(self, x):
+        """Analytic gradient, guarded near zero distance."""
+        d1 = self.var1.dim
+        diff = x[:, :2] - x[:, d1:d1 + 2]
+        dist = torch.linalg.vector_norm(diff, dim=1, keepdim=True)
+        coeff = (-(dist - float(self.obs[0])) / self.variance) / \
+            torch.clamp(dist, min=1e-8)
+        g1 = coeff * diff
+        out = torch.zeros_like(x)
+        out[:, :2] = g1
+        out[:, d1:d1 + 2] = -g1
+        return out
+
+    def loglike_rows(self, x):
+        d1 = self.var1.dim
+        delta = torch.linalg.vector_norm(x[:, :2] - x[:, d1:d1 + 2],
+                                         dim=1) - float(self.obs[0])
         return (-0.5 * delta ** 2 / self.variance
                 - 0.5 * LOG_TWO_PI - math.log(self.sigma))
 
@@ -577,10 +653,9 @@ class UncertainR2RangeGaussianLikelihoodFactor(_RangeFactorBase):
     def unif_to_sample(self, u, var1=None, var2=None):
         return self._fused(super().unif_to_sample, u, var1, var2)
 
-    def evaluate_loglike(self, x):
-        x = x.reshape(-1)
+    def loglike_rows(self, x):
         d1 = self.var1.dim
-        delta = torch.linalg.vector_norm(x[:2] - x[d1:d1 + 2])
+        delta = torch.linalg.vector_norm(x[:, :2] - x[:, d1:d1 + 2], dim=1)
         if not self.observed_flag:
             return torch.log(1.0 - torch.exp(
                 -0.5 * delta ** 2 / self.unobserved_sigma ** 2))
@@ -629,6 +704,9 @@ class GaussianPriorFactor(PriorFactor, UnaryFactor):
 
     def log_pdf(self, x):
         return self.dist.log_pdf(x)
+
+    def grad_x_log_pdf(self, x):
+        return self.dist.grad_x_log_pdf(x)
 
     def sample(self, key, num_samples, device):
         return self.dist.rvs(key, num_samples, device)
@@ -694,6 +772,9 @@ class UnaryR2RangeGaussianPriorFactor(PriorFactor, UnaryFactor):
     def log_pdf(self, x):
         return self.dist.log_pdf(x)
 
+    def grad_x_log_pdf(self, x):
+        return grad_rows(self.dist.log_pdf, x)
+
     def sample(self, key, num_samples, device):
         return self.dist.rvs(key, num_samples, device)
 
@@ -737,9 +818,9 @@ class UncertainUnaryR2RangeGaussianPriorFactor(
         self.observed_flag = observed_flag
         self.unobserved_sigma = unobserved_sigma
 
-    def evaluate_loglike(self, x):
+    def loglike_rows(self, x):
         delta = torch.linalg.vector_norm(
-            x.reshape(-1) - self.dist._const("center", x.device))
+            x - self.dist._const("center", x.device), dim=1)
         if not self.observed_flag:
             return torch.log(1.0 - torch.exp(
                 -0.5 * delta ** 2 / self.unobserved_sigma ** 2))
@@ -803,6 +884,9 @@ class UnarySE2ApproximateGaussianMixturePriorFactor(PriorFactor,
                 geom.se2_compose(inv, x), chols[k],
                 float(self.log_norms[k])) + math.log(self.weights[k]))
         return torch.logsumexp(torch.stack(lps, -1), dim=-1)
+
+    def grad_x_log_pdf(self, x):
+        return grad_rows(self.log_pdf, x)
 
     def unif_to_sample(self, u):
         """One (3,) uniform draw: its first coordinate picks the component
@@ -887,6 +971,12 @@ class R2RelativeGaussianLikelihoodFactor(LikelihoodFactor, BinaryFactor):
         d = self.vars[0].dim
         return self.noise.log_pdf(x[:, d:] - x[:, :d] -
                                   self._const("obs", x.device))
+
+    def grad_x_log_pdf(self, x):
+        d = self.vars[0].dim
+        g = self.noise.grad_x_log_pdf(x[:, d:] - x[:, :d] -
+                                      self._const("obs", x.device))
+        return torch.cat([-g, g], dim=-1)
 
     def __str__(self):
         c = self.covariance
@@ -1052,6 +1142,11 @@ class SE2BearingLikelihoodFactor(LikelihoodFactor, BinaryFactor):
         delta = x[:, 5] - x[:, 2] - float(self.obs[0])
         return (-0.5 * delta ** 2 / self.variance
                 - 0.5 * (LOG_TWO_PI + math.log(self.variance)))
+
+    def loglike_rows(self, x):
+        delta = x[:, 5] - x[:, 2] - float(self.obs[0])
+        return (-0.5 * delta ** 2 / self.variance
+                - 0.5 * LOG_TWO_PI - math.log(self.sigma))
 
     def __str__(self):
         vals = [str(self.var1.name), str(self.var2.name), str(self.obs[0]),

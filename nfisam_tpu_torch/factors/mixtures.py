@@ -83,12 +83,23 @@ class BinaryFactorMixture(LikelihoodFactor):
         return self.observation_var.dim
 
     # ------------------------------------------------------------- densities
+    def _comp_index(self, i: int, device) -> torch.Tensor:
+        """Component i's columns as an index tensor on ``device``, made
+        once per device."""
+        cache = self.__dict__.setdefault("_index_cache", {})
+        key = (i, str(device))
+        idx = cache.get(key)
+        if idx is None:
+            idx = cache[key] = torch.as_tensor(
+                self.comp2idx[self.components[i]], device=device)
+        return idx
+
     def component_log_pdfs(self, x: torch.Tensor) -> torch.Tensor:
         """(n, k) weighted per-component log densities."""
         cols = []
         for i, comp in enumerate(self.components):
-            idx = torch.as_tensor(self.comp2idx[comp], device=x.device)
-            cols.append(comp.log_pdf(x[:, idx]) + math.log(self.weights[i]))
+            cols.append(comp.log_pdf(x[:, self._comp_index(i, x.device)]) +
+                        math.log(self.weights[i]))
         return torch.stack(cols, dim=-1)
 
     def log_pdf(self, x):
@@ -97,19 +108,24 @@ class BinaryFactorMixture(LikelihoodFactor):
     def pdf(self, x):
         return torch.exp(self.log_pdf(x))
 
-    def evaluate_loglike(self, x):
-        """The mixture log-likelihood of one point, max-approximated when
-        one hypothesis dominates the runner-up by more than 5 nats."""
-        lps = self.component_log_pdfs(x.reshape(1, -1))[0]
-        top2 = torch.topk(lps, min(2, lps.shape[0])).values
-        if top2.shape[0] < 2 or bool(top2[0] - top2[-1] > 5.0):
-            return top2[0]
-        return torch.logsumexp(lps, dim=0)
+    def loglike_rows(self, x):
+        """The mixture log-likelihood of each row, max-approximated where
+        one hypothesis leads the runner-up by more than 5 nats."""
+        lps = self.component_log_pdfs(x)
+        if lps.shape[1] < 2:
+            return lps[:, 0]
+        top2 = torch.topk(lps, 2, dim=1).values
+        return torch.where(top2[:, 0] - top2[:, 1] > 5.0, top2[:, 0],
+                           torch.logsumexp(lps, dim=1))
 
     def grad_x_log_pdf(self, x):
-        raise NotImplementedError(
-            "mixture gradients serve only the gradient samplers, which are "
-            "not ported yet (ROADMAP A18)")
+        """The responsibility-weighted sum of the components' gradients."""
+        resp = torch.softmax(self.component_log_pdfs(x), dim=-1)
+        out = torch.zeros_like(x)
+        for i, comp in enumerate(self.components):
+            idx = self._comp_index(i, x.device)
+            out[:, idx] += resp[:, i:i + 1] * comp.grad_x_log_pdf(x[:, idx])
+        return out
 
     # -------------------------------------------------------------- sampling
     def _component_assignment(self, key, n: int, device) -> torch.Tensor:

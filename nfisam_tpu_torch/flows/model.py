@@ -217,6 +217,10 @@ class CliqueFlowModel:
         (z, separator_prior_logprob, separator_log_det), the separator
         marginal density (the AR prefix property makes the first d columns
         of the full forward self-contained)."""
+        return self.separator_forward_differentiable(x_sep)
+
+    def separator_forward_differentiable(self, x_sep: torch.Tensor):
+        """``separator_forward`` under the caller's grad mode."""
         d_sep = x_sep.shape[-1]
         x = normalize(self._padded(x_sep), self.mean, self.std, self.circ_mask)
         z, ld_perdim = stack_forward_perdim(self.flow_params, x, self.cfg)

@@ -6,10 +6,15 @@ Counterpart of ``JointFactor`` and ``StructuredJointFactor`` in
 ``JointFactor:11``, ``StructuredJointFactorForSLAM:140``): the index
 maps, the joint ``log_pdf`` over ``(n, dim)`` tensors (one call per
 factor, on the tensor's device), the split into tree factors and
-likelihood factors, and the ancestral ``sample``, which takes keys from
+likelihood factors, the ancestral ``sample``, which takes keys from
 ``split_host`` in the JAX package's order and draws with
-``torch.Generator``s seeded from them.  The nested-sampling transforms
-(``ptform``, ``loglike``, ``log_prior_tree``) are not ported yet.
+``torch.Generator``s seeded from them, and the samplers' API: the joint's
+gradient (``grad_x_log_pdf``), the prior transform from the unit cube
+through the tree factors (``ptform``), the likelihood of the other
+factors (``loglike``, each factor's ``evaluate_loglike`` row by row) and
+the density of the measure the tree draws from (``log_prior_tree``).
+Each takes ``(n, dim)`` tensors and computes in float32 on their device;
+``ptform`` stays differentiable in ``u`` unless a tree factor is a flow.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ from typing import Dict, List, Sequence
 import torch
 
 from ..core.variables import Variable
-from ..factors.factors import Factor
+from ..factors.factors import Factor, grad_rows
 from ..factors.utils import unpack_prior_binary_nh_da_factors
 from ..utils.keys import split_host
 
@@ -68,12 +73,21 @@ class JointFactor:
                 self.factor_to_indices[f], device=device)
         return idx
 
+    def _cols(self, x: torch.Tensor, v: Variable) -> torch.Tensor:
+        """The columns of variable ``v`` in ``x`` (a view)."""
+        start = self.var_to_indices[v][0]
+        return x[:, start:start + v.dim]
+
     def log_pdf(self, x: torch.Tensor) -> torch.Tensor:
         """(n, dim) -> (n,) joint log density on ``x``'s device."""
         total = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
         for f in self._factors:
             total = total + f.log_pdf(x[:, self._index(f, x.device)])
         return total
+
+    def grad_x_log_pdf(self, x: torch.Tensor) -> torch.Tensor:
+        """(n, dim) -> (n, dim) gradient of the joint log density."""
+        return grad_rows(self.log_pdf, x.to(torch.float32))
 
 
 class StructuredJointFactor(JointFactor):
@@ -167,3 +181,50 @@ class StructuredJointFactor(JointFactor):
             ki += 1
         return x
 
+
+    # ------------------------------------------------- nested-sampling API
+    def ptform(self, u: torch.Tensor) -> torch.Tensor:
+        """(n, dim) unit cube -> (n, dim) parameters: each tree prior maps
+        its variables' coordinates, then each tree binary draws its
+        unknown endpoint from its known one."""
+        u = u.to(torch.float32)
+        blocks: Dict[Variable, torch.Tensor] = {}
+        for f in self.tree_priors:
+            uf = torch.cat([self._cols(u, v) for v in f.vars], dim=1)
+            xf, start = f.unif_to_sample(uf), 0
+            for v in f.vars:
+                blocks[v] = xf[:, start:start + v.dim]
+                start += v.dim
+        for f, var1_sampled in self.tree_binaries:
+            v1, v2 = f.vars[0], f.vars[1]
+            if var1_sampled:
+                blocks[v2] = f.unif_to_sample(self._cols(u, v2),
+                                              var1=blocks[v1])
+            else:
+                blocks[v1] = f.unif_to_sample(self._cols(u, v1),
+                                              var2=blocks[v2])
+        return torch.cat([blocks[v] for v in self._vars], dim=1)
+
+    def loglike(self, x: torch.Tensor) -> torch.Tensor:
+        """(n, dim) parameters -> (n,) log-likelihood of the non-tree
+        factors, each row by ``evaluate_loglike``'s rule."""
+        x = x.to(torch.float32)
+        total = torch.zeros(x.shape[0], device=x.device)
+        for f in self.likelihood_factors:
+            total = total + f.loglike_rows(x[:, self._index(f, x.device)])
+        return total
+
+    def log_prior_tree(self, x: torch.Tensor) -> torch.Tensor:
+        """(n, dim) parameters -> (n,) log density of the measure that
+        ``sample`` and ``ptform`` draw from: the tree priors' densities and
+        the tree binaries' ancestral densities (a ring-drawn range carries
+        the polar Jacobian its ``log_pdf`` lacks).  A Metropolis move over
+        that measure needs it in its acceptance ratio."""
+        x = x.to(torch.float32)
+        total = torch.zeros(x.shape[0], device=x.device)
+        for f in self.tree_priors:
+            total = total + f.log_pdf(x[:, self._index(f, x.device)])
+        for f, var1_sampled in self.tree_binaries:
+            total = total + f.log_ancestral_density(
+                x[:, self._index(f, x.device)], var1_sampled=var1_sampled)
+        return total

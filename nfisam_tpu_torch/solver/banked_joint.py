@@ -126,6 +126,17 @@ def _banked_nll(x: torch.Tensor, banks) -> torch.Tensor:
     return total
 
 
+def banked_log_density(x: torch.Tensor, banks) -> torch.Tensor:
+    """Log joint density of each state row of ``x`` (C, D): minus the sum
+    of every bank's rows' negative log densities (the joint's
+    ``log_pdf``, a few batched operations a bank)."""
+    total = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    for name, (idx, params) in banks.items():
+        total = total - torch.sum(_ROW_NLL[name](x[:, idx], *params),
+                                  dim=-1)
+    return total
+
+
 class SparseHessian:
     """The gradient and Hessian of ``_banked_nll``, each summed in a fixed
     order so that a solve gives the same bits on every run.  The Hessian

@@ -16,8 +16,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..core.distributions import norm_ppf
 from ..core.variables import Variable, circular_dim_list
-from ..flows.model import CliqueFlowModel
+from ..factors.factors import grad_rows
+from ..flows.model import (CliqueFlowModel, _select_inverse_fn,
+                           conditional_draw_core)
 from ..flows.nsf import NSFConfig
 from ..graph.bayes_tree import CliqueNode
 from ..samplers.simulation import compile_schedule
@@ -150,6 +153,51 @@ class FlowsPriorFactor(CliqueSeparatorFactor):
         aug = self._augment(x.to(self._flow_model.device, torch.float32))
         _, prior_lp, log_det = self._flow_model.separator_forward(aug)
         return prior_lp + log_det
+
+    def grad_x_log_pdf(self, x: torch.Tensor) -> torch.Tensor:
+        """Gradient of ``log_pdf`` in the separator columns."""
+        def log_density(aug):
+            _, prior_lp, log_det = \
+                self._flow_model.separator_forward_differentiable(aug)
+            return prior_lp + log_det
+
+        aug = self._augment(x.to(self._flow_model.device, torch.float32))
+        return grad_rows(log_density, aug)[:, self._obs_dim:]
+
+    def unif_to_sample(self, u: torch.Tensor) -> torch.Tensor:
+        """A single ``(d,)`` or a batch ``(n, d)`` of unit-cube points to
+        separator samples: the flow's masked AR inverse of their normal
+        quantiles with the observation columns pinned (the kernel on a
+        card).  A flow wider than this factor (frontal and pad columns)
+        takes zeros in the extra dims, which are sliced off."""
+        return self._unif_to_sample(
+            u, _select_inverse_fn(self._flow_model.device))
+
+    def _unif_to_sample(self, u: torch.Tensor, inverse_fn) -> torch.Tensor:
+        """``unif_to_sample`` through the masked AR inverse ``inverse_fn``."""
+        if u.requires_grad:
+            raise NotImplementedError(
+                "FlowsPriorFactor.unif_to_sample has no gradient: the "
+                "masked AR inverse has no backward pass")
+        m = self._flow_model
+        squeeze = u.ndim == 1
+        u = torch.atleast_2d(u).to(m.device, torch.float32)
+        n, sep = u.shape[0], self._obs_dim
+        z = norm_ppf(torch.clamp(u, 1e-12, 1.0 - 1e-12))
+        z_full = torch.zeros((n, m.dim), dtype=torch.float32,
+                             device=m.device)
+        z_full[:, sep:sep + z.shape[1]] = z
+        invert_mask = self.__dict__.get("_invert_mask")
+        if invert_mask is None:
+            invert_mask = self._invert_mask = torch.as_tensor(
+                np.arange(m.dim) >= sep, device=m.device)
+        with torch.no_grad():
+            x = conditional_draw_core(
+                m.flow_params, m.mean, m.std, m.circ_mask, z_full,
+                m._padded(self._obs_block(n)), invert_mask, m.cfg,
+                inverse_fn)
+        out = x[:, sep:sep + self.dim]
+        return out[0] if squeeze else out
 
     def sample(self, key, num_samples: int, device=None) -> torch.Tensor:
         """Draws of the separator block (the flow's own device; trailing

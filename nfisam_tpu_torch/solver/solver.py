@@ -53,6 +53,10 @@ class SolverArgs:
     elimination_method: str = "natural"  # natural | pose_first | ccolamd
     posterior_sample_num: int = 500
     local_sample_num: int = 500
+    # clique training samples: ancestral simulation ("direct"), or nested
+    # sampling of the clique's joint ("nested"; "dynamic nested" runs the
+    # static sampler too, as in the JAX package: ROADMAP C3)
+    local_sampling_method: str = "direct"
     seed: int = 0
     # evidence-aware recycling (mode repair): when a NEW range factor is
     # inconsistent with the whole committed posterior of its endpoints
@@ -69,7 +73,7 @@ class SolverArgs:
         that are constants here (``constants``, and mode repair's) join
         the fields, at their values."""
         d = asdict(self)
-        d.update(store_clique_samples=False, local_sampling_method="direct",
+        d.update(store_clique_samples=False,
                  mode_repair_sigma=MODE_REPAIR_SIGMA,
                  mode_repair_max_per_step=MODE_REPAIR_MAX_PER_STEP,
                  mode_repair_cooldown=MODE_REPAIR_COOLDOWN, **constants)
@@ -534,12 +538,25 @@ class FactorGraphSolver:
             clique=clique, new_factor=new_sep_factor)
 
     def clique_training_sampler(self, clique: CliqueNode, num_samples: int):
-        """Training samples for one clique by ancestral simulation."""
+        """Training samples for one clique, by ``local_sampling_method``:
+        (samples on the solver's device, their variable order, the
+        observations the samples leave unused)."""
         subgraph = self._working_graph.clique_subgraph(clique)
         pattern = self._working_bayes_tree.clique_variable_pattern(clique)
-        sampler = SimulationBasedSampler(factors=subgraph.factors,
-                                         vars=pattern, device=self.device)
-        return sampler.sample(self._next_key(), num_samples)
+        method = self._args.local_sampling_method
+        if method == "direct":
+            sampler = SimulationBasedSampler(factors=subgraph.factors,
+                                             vars=pattern,
+                                             device=self.device)
+            return sampler.sample(self._next_key(), num_samples)
+        if method in ("nested", "dynamic nested"):
+            from .nested_adapter import nested_clique_samples
+            samples = nested_clique_samples(
+                self._next_key(), pattern, subgraph.factors, num_samples,
+                dynamic=(method == "dynamic nested"), device=self.device)
+            return (torch.as_tensor(samples, device=self.device), pattern,
+                    np.array([]))
+        raise ValueError(f"Unknown sampling method {method}")
 
     def sample_posterior(self, timer: Optional[List[float]] = None
                          ) -> Mapping:

@@ -7,7 +7,8 @@ same elimination orderings, hypothesis-weight lines naming the same
 factors, and a ``parameters`` JSON with the same keys.  ``python -m
 nfisam_tpu_torch`` runs ``solve``, ``mmd`` prints the JAX CLI's JSON to
 1e-6 on the same files, ``baseline`` prints the JAX CLI's MAP NLL to
-1e-4, ``reference`` and ``--plot`` exit 2, and ``solve`` without
+1e-4, ``--plot`` exits 2 (``reference`` has its own tests in
+``test_torch_reference_cli.py``), and ``solve`` without
 ``--device`` exits non-zero on a host without a card.
 
 Run as a script, ``JAX_PLATFORMS=cpu python tests/test_torch_cli.py``,
@@ -177,7 +178,8 @@ def test_baseline_prints_the_jax_map_nll(tmp_path, capsys):
     assert np.loadtxt(out).shape == (50, 22)
 
 
-@pytest.mark.parametrize("argv", [["reference", "--fg", "x.fg"],
+@pytest.mark.parametrize("argv", [["solve", "--fg", "x.fg", "--plot",
+                                   "--device", "cpu"],
                                   ["solve", "--fg", "x.fg", "--plot"]])
 def test_unported_commands_exit_2(argv):
     assert cli.main(argv) == 2

@@ -305,6 +305,98 @@ def test_cuda_jax_checkpoint_restores_on_the_card(cuda, tmp_path):
         assert all(np.isfinite(x).all() for x in samples.values())
 
 
+def _flow_prior(device, obs_dim: int = 2):
+    """A ``FlowsPriorFactor`` over [X1 (SE2), L1 (R2)] on a random 16-dim
+    flow (K=9, h=8) with ``obs_dim`` observation columns pinned."""
+    import nfisam_tpu_torch.core as core
+    from nfisam_tpu_torch.flows import CliqueFlowModel
+    from nfisam_tpu_torch.solver.nfisam import FlowsPriorFactor
+
+    rng = np.random.default_rng(3)
+    cfg = NSFConfig(dim=16, num_knots=9, hidden_dim=8)
+    model = CliqueFlowModel(
+        cfg, chip_smoke.random_flow(rng, 16, 8, 9, 1, device),
+        torch.as_tensor(rng.normal(size=16).astype(np.float32), device=device),
+        torch.as_tensor(rng.uniform(0.5, 2, 16).astype(np.float32),
+                        device=device),
+        [False] * 16, obs_dim + 5, pad_dims=4)
+    return FlowsPriorFactor([core.SE2Variable("X1"), core.R2Variable("L1")],
+                            model, rng.normal(size=obs_dim),
+                            [False, False, True, False, False], lambda: None)
+
+
+@pytest.mark.parametrize("n", [8, 25, 50])
+def test_cuda_flow_prior_unif_to_sample_through_the_kernel(cuda, n):
+    """Nested clique sampling's transform: one launch a call, and the
+    plain inverse's numbers."""
+    factor = _flow_prior(cuda)
+    u = torch.as_tensor(np.random.default_rng(n).uniform(
+        0.01, 0.99, (n, 5)).astype(np.float32), device=cuda)
+    before = ar_inverse_kernel.launches
+    got = factor.unif_to_sample(u)
+    assert ar_inverse_kernel.launches == before + 1
+    ref = factor._unif_to_sample(u, stack_inverse_masked_plain)
+    assert got.shape == (n, 5) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ref, **TOL)
+
+
+def test_cuda_batched_loglike_matches_rowwise(cuda):
+    """``loglike_rows`` of every likelihood factor of case1_da (its
+    ambiguous ranges take both sides of the 5-nat rule) equals
+    ``evaluate_loglike`` row by row, and a CUDA graph's replay of the
+    joint's likelihood equals the eager call bit for bit."""
+    from nfisam_tpu_torch.io import graph_file_parser
+    from nfisam_tpu_torch.samplers import StructuredJointFactor
+    from nfisam_tpu_torch.utils.cuda_graph import CudaGraphed
+
+    nodes, _, factors = graph_file_parser(os.path.join(
+        chip_smoke.HERE, "data", "case1_da_factor_graph.fg"))
+    joint = StructuredJointFactor(factors, nodes)
+    u = torch.as_tensor(np.random.default_rng(0).uniform(
+        0.01, 0.99, (64, joint.dim)).astype(np.float32), device=cuda)
+    x = joint.ptform(u)
+    for f in joint.likelihood_factors:
+        xf = x[:, joint._index(f, cuda)]
+        rows = torch.stack([f.evaluate_loglike(r) for r in xf])
+        torch.testing.assert_close(f.loglike_rows(xf), rows, **TOL)
+    graphed = CudaGraphed(lambda u: joint.loglike(joint.ptform(u)))
+    eager = joint.loglike(joint.ptform(u))
+    for _ in range(4):
+        assert torch.equal(graphed(u), eager)
+
+
+def test_cuda_one_ns_iteration(cuda):
+    """One nested-sampling iteration on case1 on the card: the K worst
+    retire, their refills lie above the threshold, and ncall is K a
+    shrink step."""
+    from nfisam_tpu_torch.io import graph_file_parser
+    from nfisam_tpu_torch.samplers import StructuredJointFactor
+    from nfisam_tpu_torch.samplers.nested import (HOST_READS, NestedConfig,
+                                                  _Target,
+                                                  build_ns_iteration)
+
+    nodes, _, factors = graph_file_parser(chip_smoke.CASE1_FG)
+    joint = StructuredJointFactor(factors, nodes)
+    cfg = NestedConfig(n_live=200, replace_batch=8)
+    target = _Target(joint.ptform, joint.loglike)
+    U = torch.rand((200, joint.dim), device=cuda,
+                   generator=torch.Generator(cuda).manual_seed(0))
+    L = target.like(U)
+    it = build_ns_iteration(target, joint.dim, cfg)
+    HOST_READS.clear()
+    (U2, L2, logvol, logz, X_dead, L_dead, dead_idx, L_thresh,
+     logz_remain, ncall) = it(np.array([0, 1], np.uint32), U, L,
+                              torch.zeros((), device=cuda),
+                              torch.full((), -1e30, device=cuda))
+    assert ncall == 8 * HOST_READS["ns_shrink"] > 0
+    assert X_dead.shape == (8, joint.dim)
+    assert bool(torch.isfinite(L2).all())
+    assert bool((L2[dead_idx] > L_thresh).all())
+    assert float(L_thresh) == float(torch.sort(L).values[7])
+    torch.testing.assert_close(L2[dead_idx], target.like(U2[dead_idx]),
+                               **TOL)
+
+
 def _diagnose_map_repeatability(reps: int = 50) -> None:
     """The C1 diagnosis (module docstring)."""
     import time

@@ -172,9 +172,15 @@ def test_null_hypo_matches_jax():
 
 
 def test_mixture_gradient_raises():
-    ours, _ = _null_hypo()
-    with pytest.raises(NotImplementedError, match="A18"):
-        ours.grad_x_log_pdf(torch.zeros((2, 5)))
+    """The mixture gradient no longer raises: it is the JAX package's
+    responsibility-weighted sum of the components' gradients, at 1e-4
+    (the components' gradients sum terms of the precision's size)."""
+    ours, theirs = _null_hypo()
+    x = np.random.default_rng(7).normal(0, 3, (16, 5)).astype(np.float32)
+    np.testing.assert_allclose(
+        ours.grad_x_log_pdf(torch.as_tensor(x)).numpy(),
+        np.asarray(theirs.grad_x_log_pdf(jnp.asarray(x))),
+        atol=1e-4, rtol=1e-4)
 
 
 # ---------------------------------------------------------------- draws

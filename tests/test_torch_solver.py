@@ -206,7 +206,13 @@ def test_port_imports_no_jax_and_no_jax_package():
             "nfisam_tpu_torch.eval.metrics, nfisam_tpu_torch.cli, "
             "nfisam_tpu_torch.solver.run, nfisam_tpu_torch.solver.checkpoint, "
             "nfisam_tpu_torch.sim, nfisam_tpu_torch.io.g2o, "
-            "nfisam_tpu_torch.core.likelihoods\n"
+            "nfisam_tpu_torch.core.likelihoods, "
+            "nfisam_tpu_torch.samplers.nested, "
+            "nfisam_tpu_torch.samplers.nuts, nfisam_tpu_torch.samplers.smc, "
+            "nfisam_tpu_torch.samplers.run_batch, "
+            "nfisam_tpu_torch.solver.nested_adapter, "
+            "nfisam_tpu_torch.utils.functions, "
+            "nfisam_tpu_torch.utils.cuda_graph\n"
             "from nfisam_tpu_torch.train import fit_flows_batched\n"
             "import importlib, pkgutil\n"
             "for m in pkgutil.walk_packages(nfisam_tpu_torch.__path__, "
