@@ -7,14 +7,21 @@ It needs one CUDA card and the CUDA toolkit (``nvcc``), imports nothing
 of JAX or of the JAX package, and exits non-zero if any phase fails:
 
 1. device: require CUDA; print the card's name and power limit;
-2. build: compile every kernel source (``nfisam_tpu_torch/csrc``); print
-   each instantiation's registers, local memory, shared memory and block
-   shape, and fail if one uses local memory (a stack frame or spills);
-3. kernel vs plain: each kernel against its plain PyTorch version on the
-   card, at the solver's shapes and edge cases, then both timed with CUDA
-   events at the main path's shapes, at d=32 and d=64, and with every
-   column pinned: a call as the host sees it (the kernel line's ``ms``),
-   and the kernel's device time alone;
+2. build: compile every kernel source (``nfisam_tpu_torch/csrc``: the
+   specialised AR inverse and the generic one, in parallel); print each
+   specialised instantiation's registers, local memory, shared memory,
+   ring slots and block shape, and fail if one uses local memory (a stack
+   frame or spills); print the generic kernel's;
+3. kernel vs plain: each case against the plain PyTorch version on the
+   card, through the kernel ``kernel_variant`` names (the solver's shapes
+   and edge cases, the 128 bucket, the JAX tests' shapes and the flow
+   options' shapes on the generic kernel), then both kernels timed with
+   CUDA events at the main path's shapes, at d=32, 64 and 128, with every
+   column pinned, and the generic kernel at ``--hidden 16``: a call as
+   the host sees it (the kernel lines' ``ms``), and the kernel's device
+   time alone; then the masked inverse's gradient (the kernel's forward,
+   the implicit-function VJP) against autograd through the plain inverse
+   at n=1000 and n=25, within 1e-4;
 4. case1 by the sequential ``NFiSAM`` (6 poses, 2 landmarks, 6 steps)
    at the journal configuration (2000 training samples per clique, K=9,
    hidden 8, lr 0.025, <= 2000 Adam iterations with the w=25/tol=0.04
@@ -138,12 +145,32 @@ of JAX or of the JAX package, and exits non-zero if any phase fails:
    <= 2x the reference run1's (the JAX package meets it on the CPU),
    kernel launches, and each flow prior's ``unif_to_sample`` through the
    kernel against the plain inverse at the path's batch of 50 rows;
+23. the flow options on case1 at the bench configuration, steps 0-5:
+   ``cli.main(["solve", ..., "--hidden", "16", "--training-set-frac",
+   "0.9"])`` for seeds 1-3 (the generic kernel; the validation stop), and
+   ``ParallelNFiSAM`` with ``pad_dim_multiple=4`` (the generic kernel)
+   and with ``dim_bucket_floor=128`` (every clique at d=128, h=64, the
+   specialised kernel), seed 1; Adam iterations per clique, the cliques
+   the validation rule stopped and the launches by kernel printed; gate:
+   the mean joint MMD (the median over seeds for the command line) <=
+   max(2x reference run1's, 1.25x the JAX package's worst on the CPU at
+   the same options);
+24. R^2 odometry: ``GaussNewtonMAP``, ``IncrementalGaussNewtonMAP`` and
+   ``baseline`` (the eight-node chain written by the port's ``.fg``
+   writer) on the eight-node chain and on the JAX package's closed-form
+   MAP test graph, every estimate within 1e-3 m of the exact mean; then
+   ``examples/toy_examples/r2_range_incremental.py``'s 4 steps by
+   ``NFiSAM`` with mode repair on, seeds 0-2: L1's mean range to X0, X2
+   and X3 within 0.5 m of 5.0, 4.0 and 5.0, the repair log printed beside
+   the JAX package's on the CPU.
 
 Each solve's kernel launches are counted from 0 just before it and read
-just after; the kernel line's ``launches`` are lawnmower_4x4's (18); the
-phase-22 case1 solve's are printed and must be > 0.  The output ends
-with one ``{"kernels": [...]}`` JSON line,
-the card's name and power limit, and ``{"ok": true, "device": {...}}``.
+just after; the specialised kernel line's ``launches`` are
+lawnmower_4x4's (18), the generic kernel line's phase 23's seed-1 solve
+through the command line; the phase-22 case1 solve's are printed and
+must be > 0.  The output ends with one ``{"kernels": [...]}`` JSON line
+(both kernels), the card's name and power limit, and ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -427,6 +454,43 @@ JAX_NESTED_CASE1_PER_STEP = (0.003115918619895512, 0.01339189816177117,
                              0.015118439277995634, 0.03693024935573878,
                              0.03652499273192855, 0.04692143332966488)
 UNIF_TOL = 1e-4
+# the flow options on case1 at the bench configuration (phase 23): the
+# command line with a wider conditioner and a held-out tenth (the
+# validation stop) for seeds 1-3, and ``ParallelNFiSAM`` with each
+# bucketing option, seed 1 (``dim_bucket_floor=128`` puts every clique in
+# the 128 bucket, h=64); gate: the mean joint MMD over steps 0-5 (the
+# median over seeds for the command line) <= max(MMD_GATE_FACTOR x the
+# reference run1's, OPTIONS_GATE_FACTOR x the JAX package's worst over
+# the same seeds and options on the CPU: ``JAX_PLATFORMS=cpu python
+# tests/test_torch_flow_options.py``)
+OPTIONS_ARGV = ["--hidden", "16", "--training-set-frac", "0.9"]
+OPTIONS_SEEDS = (1, 2, 3)
+OPTION_SOLVES = {"pad_dim_multiple=4": dict(pad_dim_multiple=4),
+                 "dim_bucket_floor=128": dict(dim_bucket_floor=128)}
+OPTIONS_GATE_FACTOR = 1.25
+JAX_OPTIONS_MMD_WORST = {
+    "--hidden 16 --training-set-frac 0.9": 0.029407787030947975,
+    "pad_dim_multiple=4": 0.02606030271347153,
+    "dim_bucket_floor=128": 0.031920495555511}
+# R^2 odometry (phase 24): both MAP solvers and ``baseline`` on the
+# eight-node chain and the closed-form graph of the JAX package's
+# tests/test_map_solver.py, every estimate within R2_MAP_TOL_M of the
+# exact mean; then examples/toy_examples/r2_range_incremental.py's 4 steps
+# by ``NFiSAM`` with mode repair on (its configuration: 500 draws, 1000
+# training samples, <= 800 iterations, K=8, lr 0.03, pose_first), seeds
+# 0-2; gate: L1's posterior mean range to X0, X2, X3 within R2_RANGE_GATE_M
+# of the measured 5.0, 4.0, 5.0 m.  The JAX package's repair logs on the
+# CPU over the same seeds (``JAX_PLATFORMS=cpu python
+# tests/test_torch_r2_odometry.py``) are printed beside the port's, not
+# gated: the JAX package reads an asynchronous snapshot
+R2_MAP_TOL_M = 1e-3
+R2_RANGE_ARGS = dict(posterior_sample_num=500, local_sample_num=1000,
+                     flow_iterations=800, num_knots=8, learning_rate=0.03,
+                     elimination_method="pose_first", mode_repair=True)
+R2_RANGE_SEEDS = (0, 1, 2)
+R2_RANGE_MEASURED = {"X0": 5.0, "X2": 4.0, "X3": 5.0}
+R2_RANGE_GATE_M = 0.5
+JAX_R2_RANGE_REPAIR_LOGS = ([], [], [])
 
 
 def lawnmower_argv(seed: int, out: str, ckpt: str = None) -> list:
@@ -1147,21 +1211,55 @@ KERNEL_CASES = [
     ("ns n=25 sep4", 25, 16, 8, 9, 1, 4, ()),
     ("ns n=50 sep6", 50, 16, 8, 9, 1, 6, ()),
     ("ns n=25 sep3 K6", 25, 16, 8, 6, 1, 3, ()),
+    # the 128 bucket (specialised, a 2-slot ring) with circular dims and
+    # pinned columns
+    ("d128 h64 K7", 1000, 128, 64, 7, 1, 6, (7,)),
+    ("d128 h64 K9", 1000, 128, 64, 9, 1, 6, (7, 70)),
+    ("d128 h64 K12 odd n", 777, 128, 64, 12, 1, 6, (100,)),
+    # the generic kernel: the JAX tests' shapes (test_checkpoint.py:18,
+    # test_mesh.py:24, test_prewarm.py:25, test_flows.py:95,151), --hidden
+    # 16, scale_hidden_with_dim=False, pad_dim_multiple=4, K=20
+    ("generic d5 h4 K6", 1000, 5, 4, 6, 1, 2, ()),
+    ("generic d4 h4 K5", 1000, 4, 4, 5, 1, 1, ()),
+    ("generic d8 h4 K5", 1000, 8, 4, 5, 1, 3, ()),
+    ("generic d8 h8 K9", 1000, 8, 8, 9, 1, 3, ()),
+    ("generic d2 h8 K8 2 flows", 1000, 2, 8, 8, 2, 0, ()),
+    ("generic d5 h8 K8 2 flows", 1000, 5, 8, 8, 2, 1, (3,)),
+    ("generic d16 h16 K9", 1000, 16, 16, 9, 1, 2, ()),
+    ("generic d16 h16 K9 n=2000", 2000, 16, 16, 9, 1, 2, ()),
+    ("generic d16 h4 K9", 1000, 16, 4, 9, 1, 2, ()),
+    ("generic d12 h8 K9", 1000, 12, 8, 9, 1, 3, (4,)),
+    ("generic d16 h8 K20", 1000, 16, 8, 20, 1, 2, (6,)),
+    ("generic d16 h16 K9 n=25", 25, 16, 16, 9, 1, 4, ()),
 ]
 # the shapes the timings are taken at: a case1 root clique's posterior
 # draw (n=1000) and a separator-factor draw in simulation (n=2000), d=16,
 # h=8, K=9, 1 flow, 2 observation columns pinned; the first is the
 # kernel line's; then K=6 (the mode-repair graph's), the d=32 and d=64 dim
 # buckets at n=1000, every column pinned (no dim step: the launch, the
-# loads and the store alone), and a nested-sampling batch (n=25), where
-# the launch is the cost
+# loads and the store alone), a nested-sampling batch (n=25), where the
+# launch is the cost, the d=128 bucket, and the generic kernel at
+# ``--hidden 16`` (its line's)
 TIMED_CASES = [("timed n=1000 sep2", 1000, 16, 8, 9, 1, 2, ()),
                ("timed K6 n=1000 sep2", 1000, 16, 8, 6, 1, 2, ()),
                ("timed n=2000 sep2", 2000, 16, 8, 9, 1, 2, ()),
                ("timed d32 n=1000 sep2", 1000, 32, 16, 9, 1, 2, ()),
                ("timed d64 n=1000 sep2", 1000, 64, 32, 9, 1, 2, ()),
                ("timed n=1000 all pinned", 1000, 16, 8, 9, 1, 16, ()),
-               ("timed ns n=25 sep4", 25, 16, 8, 9, 1, 4, ())]
+               ("timed ns n=25 sep4", 25, 16, 8, 9, 1, 4, ()),
+               ("timed d128 n=1000 sep2", 1000, 128, 64, 9, 1, 2, ()),
+               ("timed generic d16 h16 n=1000 sep2", 1000, 16, 16, 9, 1, 2,
+                ())]
+GENERIC_TIMED = "timed generic d16 h16 n=1000 sep2"
+# the gradient of the masked inverse (``MaskedStackInverse``: the kernel's
+# forward, the implicit-function VJP) against autograd through the plain
+# inverse: the main path's shape, a nested-sampling batch and a 2-flow
+# stack (the backward walks the flows in reverse); |diff| <= GRAD_RTOL
+# (|plain| + its largest entry)
+GRAD_CASES = [("grad n=1000 sep2", 1000, 16, 8, 9, 1, 2, ()),
+              ("grad ns n=25 sep4", 25, 16, 8, 9, 1, 4, ()),
+              ("grad 2 flows n=1000 sep3", 1000, 16, 8, 9, 2, 3, ())]
+GRAD_RTOL = 1e-4
 # cycles of the sleep kernel that holds the stream while a call is queued
 # (~1 ms), so that the events time the device's work alone
 HOLD_CYCLES = 2_000_000
@@ -1228,36 +1326,101 @@ def time_cuda(fn, warmup: int = 5, repeats: int = 30,
     return float(np.median(times))
 
 
-def check_ar_inverse(device) -> dict:
-    """The AR-inverse kernel against its plain version on every case, then
-    both timed at ``TIMED_CASES``.  Launches here are not counted as the
-    main path's: the caller resets the count before the solve."""
+def kernel_entry(variant: str, worst: float, timed) -> dict:
+    """One kernel's entry of the ``{"kernels": [...]}`` line (its launches
+    filled in from the main path's run)."""
+    from nfisam_tpu_torch.flows.ar_inverse import ARInverseKernel
+
+    ms, plain_ms, bytes_ms, flops_ms = timed
+    return {"name": {"specialized": "ar_inverse_masked",
+                     "generic": "ar_inverse_generic"}[variant],
+            "route": "cuda",
+            "source": os.path.relpath(ARInverseKernel.sources[variant], HERE),
+            "replaces": "nfisam_tpu/flows/ar_inverse_pallas.py:168",
+            "launches": None,
+            "max_abs_err": worst,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "library_ms": None}
+
+
+def compare_case(case, device, seed: int) -> tuple:
+    """The kernel that ``case`` goes to against the plain version on its
+    inputs, within atol and rtol ``KERNEL_TOL``; fails the run if they
+    disagree.  Returns (variant, max |kernel - plain|)."""
     from nfisam_tpu_torch.flows import (stack_inverse_masked_cuda,
                                         stack_inverse_masked_plain)
+    from nfisam_tpu_torch.flows.ar_inverse import kernel_variant
 
-    worst = worst_main = 0.0
+    cfg, params, z, xp, mask = make_case(case, device, seed=seed)
+    variant = kernel_variant(cfg.dim, cfg.hidden_dim, cfg.num_knots)
+    with torch.no_grad():
+        got = stack_inverse_masked_cuda(params, z, xp, mask, cfg)
+        torch.cuda.synchronize()
+        ref = stack_inverse_masked_plain(params, z, xp, mask, cfg)
+    err = (got - ref).abs()
+    bad = err > KERNEL_TOL + KERNEL_TOL * ref.abs()
+    max_err = float(err.max()) if err.numel() else 0.0
+    log(f"ar_inverse {case[0]} ({variant}): max |kernel - plain| "
+        f"{max_err:.3e}, finite {bool(torch.isfinite(got).all())}")
+    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        raise SystemExit(f"ar_inverse kernel disagrees with its plain "
+                         f"version on {case[0]}: max err {max_err:.3e}")
+    return variant, max_err
+
+
+def check_launched_shapes(device) -> None:
+    """Every (d, h, K) a path of this run launched a kernel at (the
+    wrapper's ``launched_shapes``, cleared after the kernel checks), held
+    against the plain version at the fewest and the most samples it was
+    launched with (a third of the dims pinned, the middle one circular),
+    where ``KERNEL_CASES`` has no case of that (n, d, h, K)."""
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+
+    checked = {(n, d, h, K) for _, n, d, h, K, *_ in KERNEL_CASES}
+    ns: dict = {}
+    for variant, n, d, h, K in ar_inverse_kernel.launched_shapes:
+        ns.setdefault((variant, d, h, K), set()).add(n)
+    cases = []
+    for (variant, d, h, K), seen in sorted(ns.items()):
+        for n in sorted({min(seen), max(seen)}):
+            if (n, d, h, K) not in checked:
+                cases.append((f"launched {variant} n={n} d{d} h{h} K{K}", n,
+                              d, h, K, 1, d // 3,
+                              (d // 2,) if d > 1 else ()))
+    for i, case in enumerate(cases):
+        compare_case(case, device, seed=500 + i)
+    log(f"ar_inverse: every launched (d, h, K) checked: "
+        f"{ {k: sorted(v) for k, v in sorted(ns.items())} } (variant, d, "
+        f"h, K): launched n; {len(cases)} shape(s) beyond KERNEL_CASES")
+
+
+def check_ar_inverse(device) -> list:
+    """Both AR-inverse kernels against their plain version on every case
+    (each case goes to the kernel ``kernel_variant`` names), then both
+    timed at ``TIMED_CASES``.  Launches here are not counted as the main
+    path's: the caller resets the counts before each solve.  Returns the
+    two kernels' entries: the specialised kernel's error at the main
+    path's shapes, the generic kernel's over its cases."""
+    from nfisam_tpu_torch.flows import (stack_inverse_masked_cuda,
+                                        stack_inverse_masked_plain)
+    from nfisam_tpu_torch.flows.ar_inverse import kernel_variant
+
+    worst = dict.fromkeys(("specialized", "generic"), 0.0)
+    worst_main = 0.0
     for i, case in enumerate(KERNEL_CASES):
-        cfg, params, z, xp, mask = make_case(case, device, seed=100 + i)
-        with torch.no_grad():
-            got = stack_inverse_masked_cuda(params, z, xp, mask, cfg)
-            torch.cuda.synchronize()
-            ref = stack_inverse_masked_plain(params, z, xp, mask, cfg)
-        err = (got - ref).abs()
-        bad = err > KERNEL_TOL + KERNEL_TOL * ref.abs()
-        max_err = float(err.max())
-        log(f"ar_inverse {case[0]}: max |kernel - plain| {max_err:.3e}, "
-            f"finite {bool(torch.isfinite(got).all())}")
-        if bool(bad.any()) or not bool(torch.isfinite(got).all()):
-            raise SystemExit(f"ar_inverse kernel disagrees with its plain "
-                             f"version on {case[0]}: max err {max_err:.3e}")
-        worst = max(worst, max_err)
+        variant, max_err = compare_case(case, device, seed=100 + i)
+        worst[variant] = max(worst[variant], max_err)
         if case[0].startswith("main"):
             worst_main = max(worst_main, max_err)
     log(f"ar_inverse: max |kernel - plain| {worst_main:.3e} at the main "
-        f"path's shapes, {worst:.3e} over all, within atol {KERNEL_TOL} + "
-        f"rtol {KERNEL_TOL}")
+        f"path's shapes, {worst['specialized']:.3e} over the specialised "
+        f"kernel's cases, {worst['generic']:.3e} over the generic "
+        f"kernel's, within atol {KERNEL_TOL} + rtol {KERNEL_TOL}")
 
-    timed = []
+    timed = {}
     for case in TIMED_CASES:
         cfg, params, z, xp, mask = make_case(case, device, seed=7)
         with torch.no_grad():
@@ -1270,48 +1433,88 @@ def check_ar_inverse(device) -> dict:
         nbytes, flops = ar_inverse_work(z.shape[0], cfg, mask.cpu().numpy())
         bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         flops_ms = 1e3 * flops / F32_FLOP_PER_S
-        log(f"ar_inverse {case[0]}: kernel {ms:.5f} ms a call, "
-            f"{device_ms:.5f} ms on the device; plain {plain_ms:.3f} ms; "
-            f"bound {max(bytes_ms, flops_ms):.6f} ms ({nbytes} B -> "
-            f"{bytes_ms:.6f} ms, {flops:.3e} FLOP -> {flops_ms:.6f} ms)")
-        timed.append((ms, plain_ms, bytes_ms, flops_ms))
-    ms, plain_ms, bytes_ms, flops_ms = timed[0]
-    return {"name": "ar_inverse_masked",
-            "route": "cuda",
-            "source": "nfisam_tpu_torch/csrc/ar_inverse.cu",
-            "replaces": "nfisam_tpu/flows/ar_inverse_pallas.py:168",
-            "launches": None,
-            "max_abs_err": worst_main,
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, flops_ms),
-            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            "library_ms": None}
+        log(f"ar_inverse {case[0]} "
+            f"({kernel_variant(cfg.dim, cfg.hidden_dim, cfg.num_knots)}): "
+            f"kernel {ms:.5f} ms a call, {device_ms:.5f} ms on the device; "
+            f"plain {plain_ms:.3f} ms; bound {max(bytes_ms, flops_ms):.6f} "
+            f"ms ({nbytes} B -> {bytes_ms:.6f} ms, {flops:.3e} FLOP -> "
+            f"{flops_ms:.6f} ms)")
+        timed[case[0]] = (ms, plain_ms, bytes_ms, flops_ms)
+    return [kernel_entry("specialized", worst_main,
+                         timed[TIMED_CASES[0][0]]),
+            kernel_entry("generic", worst["generic"],
+                         timed[GENERIC_TIMED])]
+
+
+def check_unif_gradient(device) -> float:
+    """``MaskedStackInverse`` with the kernel's forward against autograd
+    through the plain inverse, at ``GRAD_CASES``: the VJP of a fixed
+    random cotangent.  Returns the worst |diff| over the largest
+    entry."""
+    from nfisam_tpu_torch.flows import (stack_inverse_masked_cuda,
+                                        stack_inverse_masked_plain)
+    from nfisam_tpu_torch.flows.ar_inverse import \
+        stack_inverse_masked_differentiable
+
+    worst = 0.0
+    for i, case in enumerate(GRAD_CASES):
+        cfg, params, z, xp, mask = make_case(case, device, seed=300 + i)
+        w = torch.as_tensor(np.random.default_rng(i).normal(
+            size=tuple(z.shape)).astype(np.float32), device=device)
+        grads = []
+        for run in (lambda zz: stack_inverse_masked_differentiable(
+                        params, zz, xp, mask, cfg, stack_inverse_masked_cuda),
+                    lambda zz: stack_inverse_masked_plain(params, zz, xp,
+                                                          mask, cfg)):
+            zz = z.clone().requires_grad_(True)
+            (g,) = torch.autograd.grad((run(zz) * w).sum(), zz)
+            grads.append(g)
+        got, ref = grads
+        diff = (got - ref).abs()
+        scale = float(ref.abs().max())
+        rel = float(diff.max()) / scale
+        log(f"unif gradient {case[0]}: max |kernel VJP - autograd of "
+            f"plain| {float(diff.max()):.3e}, {rel:.3e} of the largest "
+            f"entry {scale:.3f}")
+        if bool((diff > GRAD_RTOL * (ref.abs() + scale)).any()) or \
+                not bool(torch.isfinite(got).all()):
+            raise SystemExit(f"the masked inverse's gradient disagrees "
+                             f"with autograd through the plain version on "
+                             f"{case[0]}")
+        worst = max(worst, rel)
+    return worst
 
 
 def build_report() -> None:
-    """Each AR-inverse instantiation's block shape, registers, local
-    memory and dynamic shared memory, as the runtime reads them from the
-    built cubin (ptxas's figures: spills and a stack frame are local
-    memory); fails if any instantiation uses local memory."""
+    """Each specialised AR-inverse instantiation's block shape, registers,
+    local memory, dynamic shared memory and ring slots, as the runtime
+    reads them from the built cubin (ptxas's figures: spills and a stack
+    frame are local memory), failing if any uses local memory; then the
+    generic kernel's (one build for every shape; its shared memory at the
+    generic timed shape), printed."""
     from nfisam_tpu_torch.flows.ar_inverse import (SUPPORTED_DIM_HIDDEN,
                                                    SUPPORTED_KNOTS,
                                                    ar_inverse_kernel)
+
+    def describe(info):
+        return (f"{info['threads']} threads ({info['samples']} samples) a "
+                f"block, {info['registers']} registers, "
+                f"{info['local_bytes']} B local (stack and spills), "
+                f"{info['smem_bytes']} B dynamic shared memory, "
+                f"{info['slots']} ring slots")
 
     local = []
     for d, h in SUPPORTED_DIM_HIDDEN:
         for K in SUPPORTED_KNOTS:
             info = ar_inverse_kernel.info(d, h, K)
-            log(f"ar_inverse d={d} h={h} K={K}: {info['threads']} threads "
-                f"({info['samples']} samples) a block, {info['registers']} "
-                f"registers, {info['local_bytes']} B local (stack and "
-                f"spills), {info['smem_bytes']} B dynamic shared memory, "
-                f"{info['slots']} ring slots")
+            log(f"ar_inverse d={d} h={h} K={K}: {describe(info)}")
             if info["local_bytes"]:
                 local.append((d, h, K))
     if local:
         raise SystemExit(f"ar_inverse instantiations with local memory "
                          f"(stack or spills): {local}")
+    log(f"ar_inverse_generic (any d, h, K; at d=16 h=16 K=9): "
+        f"{describe(ar_inverse_kernel.info(16, 16, 9))}")
 
 
 def profile_solve(device) -> None:
@@ -1366,7 +1569,7 @@ def case1_phase(device, parallel: bool, name2dim):
     label = "ParallelNFiSAM" if parallel else "NFiSAM"
     per_step_by_seed, launches, solver = [], [], None
     for seed in SEEDS:
-        ar_inverse_kernel.launches = 0
+        ar_inverse_kernel.reset_launches()
         total, steps, per_step, solver = solve_case1(seed, device, parallel)
         launches.append(ar_inverse_kernel.launches)
         log(f"case1 {label} seed {seed}: total {total:.3f} s, posterior "
@@ -1396,7 +1599,7 @@ def plaza_phase(device):
     translation-error gate.  Returns the solver."""
     from nfisam_tpu_torch.flows import ar_inverse_kernel
 
-    ar_inverse_kernel.launches = 0
+    ar_inverse_kernel.reset_launches()
     steps, samples, truth, solver = solve_plaza(device)
     launches = ar_inverse_kernel.launches
     worst, rmse = translation_errors(samples, truth)
@@ -1424,7 +1627,7 @@ def robots_phase(device):
     moments, solvers = [], []
     for parallel in (True, False):
         label = "ParallelNFiSAM" if parallel else "NFiSAM"
-        ar_inverse_kernel.launches = 0
+        ar_inverse_kernel.reset_launches()
         steps, samples, solver = solve_robots(device, parallel)
         launches = ar_inverse_kernel.launches
         log(f"robots R={ROBOTS} T={ROBOT_STEPS} {label}: total "
@@ -1462,7 +1665,7 @@ def repair_phase(device):
 
     solvers, medians = [], []
     for seed in REPAIR_SEEDS:
-        ar_inverse_kernel.launches = 0
+        ar_inverse_kernel.reset_launches()
         steps, samples, solver = solve_repair(device, seed=seed)
         launches = ar_inverse_kernel.launches
         log_, med, share = repair_gates(solver, samples)
@@ -1503,7 +1706,7 @@ def separator_repair_phase(device):
         label = ("separator trap, X0 " +
                  ("ranges L1" if x0_ranges else "does not range L1"))
         for on in (True, False):
-            ar_inverse_kernel.launches = 0
+            ar_inverse_kernel.reset_launches()
             steps, samples, solver = solve_separator_repair(
                 device, x0_ranges, mode_repair=on)
             launches = ar_inverse_kernel.launches
@@ -1546,7 +1749,7 @@ def case1_da_phase(device):
 
     solvers = []
     for seed in DA_SEEDS:
-        ar_inverse_kernel.launches = 0
+        ar_inverse_kernel.reset_launches()
         steps, samples, truth, mixtures, solver = solve_case1_da(seed,
                                                                  device)
         launches = ar_inverse_kernel.launches
@@ -1586,7 +1789,7 @@ def plaza_ada_phase(device):
     solver."""
     from nfisam_tpu_torch.flows import ar_inverse_kernel
 
-    ar_inverse_kernel.launches = 0
+    ar_inverse_kernel.reset_launches()
     steps, per_step, truth, mixtures, solver = solve_plaza_ada(device)
     launches = ar_inverse_kernel.launches
     samples = per_step[-1]
@@ -1737,7 +1940,7 @@ def manhattan_phase(device):
     solver."""
     from nfisam_tpu_torch.flows import ar_inverse_kernel
 
-    ar_inverse_kernel.launches = 0
+    ar_inverse_kernel.reset_launches()
     t0 = time.perf_counter()
     steps, m, samples, solver = solve_manhattan(device)
     total = time.perf_counter() - t0
@@ -1836,7 +2039,7 @@ def eight_node_phase(device):
     var_gate = EIGHT_NODE_GATE_FACTOR * JAX_EIGHT_NODE_WORST[1]
     solver = None
     for seed in EIGHT_NODE_SEEDS:
-        ar_inverse_kernel.launches = 0
+        ar_inverse_kernel.reset_launches()
         steps, samples, solver, oracle = solve_eight_nodes(seed, device)
         launches = ar_inverse_kernel.launches
         check_finite(samples, f"eight-node seed {seed}")
@@ -1872,7 +2075,7 @@ def case1_jax_checkpoint_phase(device, name2dim):
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "ckpt")
         shutil.copytree(CASE1_JAX_CKPT, ckpt)
-        ar_inverse_kernel.launches = 0
+        ar_inverse_kernel.reset_launches()
         total, steps, per_step, solver = solve_case1(
             SEEDS[0], device, parallel=True, checkpoint_dir=ckpt)
         launches = ar_inverse_kernel.launches
@@ -1956,7 +2159,7 @@ def solve_lawnmower(device, tmp: str, extra_argv=()) -> dict:
     dev_args = [] if torch.device(device).type == "cuda" else \
         ["--device", str(device)]
     argv = lawnmower_argv(0, out, ckpt) + dev_args + list(extra_argv)
-    ar_inverse_kernel.launches = 0
+    ar_inverse_kernel.reset_launches()
     t0 = time.perf_counter()
     if cli.main(argv) != 0:
         raise SystemExit("lawnmower_4x4: solve exited non-zero")
@@ -2425,7 +2628,7 @@ def nested_clique_phase(device, steps: int = NESTED_CASE1_STEPS):
                                   "local_sampling_method": "nested"}),
                     device=device)
     HOST_READS.clear()
-    ar_inverse_kernel.launches = 0
+    ar_inverse_kernel.reset_launches()
     steps_t, per_step = run_incremental(solver, batches, device)
     launches = ar_inverse_kernel.launches
     total = sum(st["s"] for st in steps_t)
@@ -2457,6 +2660,302 @@ def nested_clique_phase(device, steps: int = NESTED_CASE1_STEPS):
     if checked == 0:
         raise SystemExit("no flow prior to check unif_to_sample on")
     return solver, launches
+
+
+# --------------------------------------------------------------------------
+# the flow options and R^2 odometry
+# --------------------------------------------------------------------------
+def case1_options_argv(seed: int, out: str) -> list:
+    """``solve`` of case1 at the bench configuration (``BENCH_ARGS``'
+    counts, K, lr and ordering; ``ParallelNFiSAM``) with ``OPTIONS_ARGV``,
+    for either package's command line."""
+    return ["solve", "--fg", CASE1_FG, "--out", out, "--incremental-step",
+            "1", "--knots", "9", "--iters", "2000", "--train-samples",
+            "2000", "--posterior-samples", "1000", "--lr", "0.025",
+            "--elimination", "pose_first", "--parallel", "--seed",
+            str(seed)] + OPTIONS_ARGV
+
+
+def run_per_step(run_dir: str, name2dim) -> tuple:
+    """A ``solve`` run's per-step samples {name: (n, dim)} read back from
+    its artifacts, and each step's Adam iterations a trained clique."""
+    steps = sorted(int(f[4:]) for f in os.listdir(run_dir)
+                   if f.startswith("step") and f[4:].isdigit())
+    per_step, iters = [], []
+    for i in steps:
+        path = os.path.join(run_dir, f"step{i}")
+        X = np.loadtxt(path, ndmin=2)
+        with open(path + "_ordering") as f:
+            names = f.read().split()
+        cols = np.cumsum([0] + [name2dim[n] for n in names])
+        per_step.append({n: X[:, cols[k]:cols[k + 1]]
+                         for k, n in enumerate(names)})
+        with open(path + "_step_training_loss") as f:
+            iters.append([len(c) for c in json.loads(f.read()).values()])
+    return per_step, iters
+
+
+def solve_case1_options(seed: int, device, tmp: str, extra_argv=()) -> tuple:
+    """case1 through ``cli.main`` with ``OPTIONS_ARGV`` (``extra_argv``
+    appended).  Returns (wall s, per-step samples, per-step Adam
+    iterations, launches by kernel variant)."""
+    from nfisam_tpu_torch import cli
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+    from nfisam_tpu_torch.io import graph_file_parser
+
+    nodes, _, _ = graph_file_parser(CASE1_FG)
+    name2dim = {str(v.name): v.dim for v in nodes}
+    out = os.path.join(tmp, f"seed{seed}")
+    dev_args = [] if torch.device(device).type == "cuda" else \
+        ["--device", str(device)]
+    ar_inverse_kernel.reset_launches()
+    t0 = time.perf_counter()
+    if cli.main(case1_options_argv(seed, out) + dev_args +
+                list(extra_argv)) != 0:
+        raise SystemExit(f"case1 with {OPTIONS_ARGV}: solve exited "
+                         f"non-zero")
+    wall = time.perf_counter() - t0
+    launches = dict(ar_inverse_kernel.variant_launches)
+    per_step, iters = run_per_step(os.path.join(out, "run1"), name2dim)
+    return wall, per_step, iters, launches
+
+
+def options_gate(label: str, mmd_joint: float, ref_mmd: float) -> None:
+    """A phase-23 solve's gate: its MMD <= max(MMD_GATE_FACTOR x
+    reference run1's, OPTIONS_GATE_FACTOR x the JAX package's worst on
+    the CPU)."""
+    jax_worst = JAX_OPTIONS_MMD_WORST[label]
+    bound = max(MMD_GATE_FACTOR * ref_mmd, OPTIONS_GATE_FACTOR * jax_worst)
+    log(f"case1 {label}: mean joint MMD over steps 0-5 {mmd_joint:.4f} (<= "
+        f"{bound:.4f}; the JAX package's worst on the CPU "
+        f"{jax_worst:.4f})")
+    if not mmd_joint <= bound:
+        raise SystemExit(f"case1 {label}: accuracy gate failed")
+
+
+def options_phase(device, name2dim) -> int:
+    """Phase 23: the flow options on case1 at the bench configuration,
+    kernel launches counted by variant from 0 just before each solve.
+    Returns the generic kernel's launches in the command line's seed-1
+    solve (the kernel line's)."""
+    import tempfile
+
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+
+    max_iters = BENCH_ARGS["flow_iterations"]
+    label = " ".join(OPTIONS_ARGV)
+    per_seed, generic_launches = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for seed in OPTIONS_SEEDS:
+            wall, per_step, iters, launches = solve_case1_options(
+                seed, device, tmp)
+            flat = [t for step in iters for t in step]
+            stopped = sum(t < max_iters for t in flat)
+            log(f"case1 via cli.main {label} seed {seed}: {wall:.3f} s, "
+                f"Adam iterations per clique per step {iters}, "
+                f"{stopped} of {len(flat)} cliques stopped by the "
+                f"validation rule, ar_inverse launches {launches}")
+            if launches["generic"] == 0:
+                raise SystemExit(f"case1 {label}: the generic kernel was "
+                                 f"never launched")
+            for step, samples in enumerate(per_step):
+                check_finite(samples, f"case1 {label} step {step}")
+            generic_launches.append(launches["generic"])
+            per_seed.append(per_step)
+    mmd_joint, ref_mmd, results = median_gate(per_seed, name2dim)
+    for seed, (ours, _, per) in zip(OPTIONS_SEEDS, results):
+        log(f"case1 {label} seed {seed} joint MMD {ours:.4f}, per step "
+            f"{[round(x, 4) for x in per]}")
+    options_gate(label, mmd_joint, ref_mmd)
+
+    for label, overrides in OPTION_SOLVES.items():
+        ar_inverse_kernel.reset_launches()
+        total, steps, per_step, solver = solve_case1(
+            OPTIONS_SEEDS[0], device, parallel=True, **overrides)
+        launches = dict(ar_inverse_kernel.variant_launches)
+        buckets = sorted({(d, h) for st in steps for d, _, _ in st["buckets"]
+                          for h in [solver._flow_config(d, []).hidden_dim]})
+        log(f"case1 ParallelNFiSAM {label} seed {OPTIONS_SEEDS[0]}: total "
+            f"{total:.3f} s, (dim, hidden) buckets {buckets}, ar_inverse "
+            f"launches {launches}")
+        log_steps(steps)
+        if sum(launches.values()) == 0:
+            raise SystemExit(f"case1 {label}: no ar_inverse launch")
+        if label.startswith("dim_bucket_floor") and (
+                buckets != [(128, 64)] or launches["specialized"] == 0):
+            raise SystemExit(f"case1 {label}: not every clique ran the "
+                             f"d=128 specialised kernel")
+        for step, samples in enumerate(per_step):
+            check_finite(samples, f"case1 {label} step {step}")
+        ours, ref, per = accuracy_gate(per_step, name2dim)
+        log(f"case1 {label} per step {[round(x, 4) for x in per]}")
+        options_gate(label, ours, ref)
+    return generic_launches[0]
+
+
+def closed_form_graph(core, factors):
+    """The graph of the JAX package's ``tests/test_map_solver.py::
+    test_map_matches_closed_form_gaussian`` in the package whose ``core``
+    and ``factors`` are given: two R^2 nodes, a prior on each and an
+    odometry factor.  Returns (variables, factors, the closed form's
+    arguments)."""
+    x0, x1 = core.R2Variable("X0"), core.R2Variable("X1")
+    cov = np.eye(2) * 0.5
+    fs = [factors.UnaryR2GaussianPriorFactor(x0, np.zeros(2),
+                                             covariance=cov),
+          factors.R2RelativeGaussianLikelihoodFactor(
+              x0, x1, np.array([2.0, 1.0]), covariance=cov),
+          factors.UnaryR2GaussianPriorFactor(x1, np.array([2.5, 1.0]),
+                                             covariance=cov)]
+    oracle = ([x0, x1], {(x0, x1): (np.array([2.0, 1.0]), cov)},
+              {x0: (np.zeros(2), cov), x1: (np.array([2.5, 1.0]), cov)})
+    return [x0, x1], fs, oracle
+
+
+def incremental_estimate(m, xs, fs) -> np.ndarray:
+    """``IncrementalGaussNewtonMAP`` step by step (a node and the factors
+    it closes), solved each step; returns the stacked estimate."""
+    for i, x in enumerate(xs):
+        m.update([x], [f for f in fs if x in f.vars and
+                       all(v in xs[:i + 1] for v in f.vars)])
+        m.solve()
+    res = m.results()
+    return np.concatenate([np.asarray(res[v])[:v.dim] for v in xs])
+
+
+def baseline_estimate(device, xs, fs, tmp: str) -> np.ndarray:
+    """``baseline`` of the graph written to a ``.fg`` by the port's
+    writer, through ``cli.main`` in this process: the MAP it prints."""
+    import contextlib
+    import io
+
+    from nfisam_tpu_torch import cli
+    from nfisam_tpu_torch.io import write_factor_graph_to_file
+
+    path = os.path.join(tmp, "r2_chain.fg")
+    write_factor_graph_to_file(xs, fs, {}, path)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["baseline", "--fg", path, "--device", str(device)])
+    if rc != 0:
+        raise SystemExit("baseline exited non-zero on the R^2 chain")
+    printed = {}
+    for line in out.getvalue().splitlines():
+        name, _, rest = line.strip().partition(": [")
+        if rest:
+            printed[name] = np.array(rest.rstrip("]").split(), float)
+    return np.concatenate([printed[str(v.name)] for v in xs])
+
+
+def r2_map_errors(device, tmp: str) -> dict:
+    """Each MAP solver's largest distance from the exact mean on the two
+    R^2 odometry graphs (and ``baseline`` on the eight-node chain):
+    {(graph, solver): m}."""
+    import nfisam_tpu_torch.core as core
+    import nfisam_tpu_torch.factors as factors
+    from nfisam_tpu_torch.eval import gaussian_displacement_graph_moments
+    from nfisam_tpu_torch.solver import (GaussNewtonMAP,
+                                         IncrementalGaussNewtonMAP)
+
+    errs = {}
+    for graph, build in (("eight-node chain", eight_node_graph),
+                         ("closed form", closed_form_graph)):
+        xs, fs, oracle = build(core, factors)
+        mu = np.asarray(gaussian_displacement_graph_moments(*oracle)[0])
+        ests = {"GaussNewtonMAP": GaussNewtonMAP(xs, fs, device=device)
+                .solve()[0],
+                "IncrementalGaussNewtonMAP": incremental_estimate(
+                    IncrementalGaussNewtonMAP(device=device), xs, fs)}
+        if graph == "eight-node chain":
+            ests["baseline"] = baseline_estimate(device, xs, fs, tmp)
+        for name, est in ests.items():
+            d = np.asarray(est, np.float64).reshape(-1, 2) - mu.reshape(-1, 2)
+            errs[(graph, name)] = float(np.linalg.norm(d, axis=1).max())
+    return errs
+
+
+def r2_range_graph(core, factors):
+    """examples/toy_examples/r2_range_incremental.py's four steps in the
+    package whose ``core`` and ``factors`` are given: R^2 poses on an
+    odometry chain, ranges from three of them to one landmark."""
+    xs = [core.R2Variable(f"X{i}") for i in range(4)]
+    lm = core.R2Variable("L1", core.VariableType.Landmark)
+    cov2 = np.diag([0.04, 0.04])
+    rel = factors.R2RelativeGaussianLikelihoodFactor
+    rng = factors.R2RangeGaussianLikelihoodFactor
+    return [([xs[0], lm], [factors.UnaryR2GaussianPriorFactor(
+                xs[0], np.zeros(2), cov2), rng(xs[0], lm, 5.0, 0.3)]),
+            ([xs[1]], [rel(xs[0], xs[1], np.array([4.0, 0.0]), cov2)]),
+            ([xs[2]], [rel(xs[1], xs[2], np.array([4.0, 0.0]), cov2),
+                       rng(xs[2], lm, 4.0, 0.3)]),
+            ([xs[3]], [rel(xs[2], xs[3], np.array([0.0, 4.0]), cov2),
+                       rng(xs[3], lm, 5.0, 0.3)])]
+
+
+def r2_ranges(samples: dict) -> dict:
+    """L1's posterior mean range to each measured pose."""
+    return {x: float(np.linalg.norm(samples["L1"] - samples[x][:, :2],
+                                    axis=1).mean())
+            for x in R2_RANGE_MEASURED}
+
+
+def solve_r2_range(seed: int, device, **overrides) -> tuple:
+    """The R^2 range example by ``NFiSAM`` at its configuration.  Returns
+    (per-step timings, last step's samples, repair log)."""
+    import nfisam_tpu_torch.core as core
+    import nfisam_tpu_torch.factors as factors
+    from nfisam_tpu_torch.solver import NFiSAM, NFiSAMArgs
+
+    solver = NFiSAM(NFiSAMArgs(**{**R2_RANGE_ARGS, **overrides,
+                                  "seed": seed}), device=device)
+    steps, per_step = run_incremental(
+        solver, r2_range_graph(core, factors), device)
+    return steps, per_step[-1], list(solver.mode_repair_log)
+
+
+def r2_odometry_phase(device) -> None:
+    """Phase 24: R^2 odometry in the MAP solvers and ``baseline``, then the
+    R^2 range example with mode repair on, kernel launches counted from 0
+    just before each solve."""
+    import tempfile
+
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        errs = r2_map_errors(device, tmp)
+    for (graph, name), err in errs.items():
+        log(f"R^2 odometry, {graph} by {name}: largest distance from the "
+            f"exact mean {err:.3e} m (<= {R2_MAP_TOL_M})")
+    log(f"R^2 odometry MAP solves: {time.perf_counter() - t0:.3f} s")
+    if not all(e <= R2_MAP_TOL_M for e in errs.values()):
+        raise SystemExit("R^2 odometry: a MAP estimate is off the exact "
+                         "mean")
+    worst = 0.0
+    for i, seed in enumerate(R2_RANGE_SEEDS):
+        ar_inverse_kernel.reset_launches()
+        steps, samples, repair_log = solve_r2_range(seed, device)
+        launches = ar_inverse_kernel.launches
+        check_finite(samples, f"R^2 range example seed {seed}")
+        ranges = r2_ranges(samples)
+        jax_log = JAX_R2_RANGE_REPAIR_LOGS[i]
+        log(f"R^2 range example seed {seed}: "
+            f"{sum(st['s'] for st in steps):.3f} s, L1's mean range "
+            f"{ {x: round(r, 4) for x, r in ranges.items()} } (measured "
+            f"{R2_RANGE_MEASURED}), repair log {repair_log} (the JAX "
+            f"package's on the CPU: {jax_log}), ar_inverse launches "
+            f"{launches}")
+        log_steps(steps)
+        if launches == 0:
+            raise SystemExit("the R^2 range example never launched the "
+                             "ar_inverse kernel")
+        worst = max(worst, max(abs(r - R2_RANGE_MEASURED[x])
+                               for x, r in ranges.items()))
+    log(f"R^2 range example: worst |mean range - measured| {worst:.4f} m "
+        f"(<= {R2_RANGE_GATE_M})")
+    if not worst <= R2_RANGE_GATE_M:
+        raise SystemExit("R^2 range example: a mean range is off its "
+                         "measurement")
 
 
 def main() -> int:
@@ -2491,7 +2990,12 @@ def main() -> int:
     log(f"build: {len(built)} kernel source(s) in {build_s:.1f} s")
     build_report()
 
-    entry = check_ar_inverse(device)
+    entries = check_ar_inverse(device)
+    grad_rel = check_unif_gradient(device)
+    log(f"unif gradient: worst {grad_rel:.3e} of the largest entry (<= "
+        f"{GRAD_RTOL})")
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+    ar_inverse_kernel.launched_shapes.clear()
 
     nodes, _, _ = graph_file_parser(CASE1_FG)
     name2dim = {str(v.name): v.dim for v in nodes}
@@ -2527,13 +3031,17 @@ def main() -> int:
     elapsed()
     restored_solver = case1_jax_checkpoint_phase(device, name2dim)
     elapsed()
-    entry["launches"] = lawnmower_phase(device)
+    entries[0]["launches"] = lawnmower_phase(device)
     elapsed()
     reference_nested_phase(device)
     elapsed()
     nuts_smc_phase(device)
     elapsed()
     nested_solver, _ = nested_clique_phase(device)
+    elapsed()
+    entries[1]["launches"] = options_phase(device, name2dim)
+    elapsed()
+    r2_odometry_phase(device)
     elapsed()
 
     finals = [("case1 NFiSAM", seq_solver),
@@ -2559,11 +3067,12 @@ def main() -> int:
         if not rel <= FUSED_TOL:
             raise SystemExit(f"{label}: the fused posterior pass disagrees "
                              f"with the per-clique walk ({rel:.3e})")
+    check_launched_shapes(device)
     if opts.profile:
         profile_solve(device)
     log(f"every phase passed in {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

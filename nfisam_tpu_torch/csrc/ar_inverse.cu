@@ -7,7 +7,10 @@
 //   P  = W3[i] h2 + b3[i]                     (3K spline parameters)
 // then the rational-quadratic spline inverse of z[:, i] under P, and writes
 // the result where invert_mask[i] (a pinned prefix column keeps its value).
-// No log-det: conditional sampling discards it.
+// No log-det: conditional sampling discards it.  This file holds the
+// compile-time shapes of the solver's dim buckets at the default width,
+// (d, h) in {(16, 8), (32, 16), (64, 32), (128, 64)} for every knot count
+// the JAX package uses; `ar_inverse_generic.cu` takes every other shape.
 //
 // What bounds it on an H100: neither bytes nor FLOPs.  At the main-path
 // shape (n = 1000-2000 samples, d = 16, h = 8, K = 9) a call reads ~0.2 MB
@@ -49,8 +52,10 @@
 //   181 KB), so each block loads the flow once, overlapped with the load of
 //   its z and prefix rows, and each step waits only for its own slice; at
 //   d = 64 (17 KB a slice) S = 3 slots are refilled behind the compute,
-//   released through an "empty" mbarrier per slot.  No __syncthreads in the
-//   dim loop.  The masks are read once into bit sets.
+//   released through an "empty" mbarrier per slot; at d = 128 (53-57 KB a
+//   slice beside 75-82 KB of resident biases) S = 2, so a step's wait
+//   covers the load of the slice after next.  No __syncthreads in the dim
+//   loop.  The masks are read once into bit sets (two words at d = 128).
 // A step at d = 16 is then ~0.9 us on an H100 (~1800 cycles of ~700
 // instructions, most waiting on a shuffle, a shared-memory load or the
 // previous instruction), against ~5.6 us for one thread per sample.
@@ -101,10 +106,61 @@ struct Shape {
   static constexpr int bytes(int s) {
     return barrier_bytes(s) + 4 * (kBias + s * kSlot);
   }
-  static constexpr int S = bytes(D) <= kSmemLimit ? D : kRingSlots;
+  // the whole flow when it fits, else the largest ring of kRingSlots or
+  // fewer (at d = 128 the resident biases leave room for two slices)
+  static constexpr int S = bytes(D) <= kSmemLimit ? D
+                           : bytes(kRingSlots) <= kSmemLimit ? kRingSlots
+                                                             : 2;
   static constexpr int kBarrierBytes = barrier_bytes(S);
   static constexpr int kBytes = bytes(S);
   static_assert(D % kGroup == 0 && H % 4 == 0 && K < kGroup, "unsupported shape");
+  static_assert(bytes(S) <= kSmemLimit, "the biases and two slices do not fit");
+};
+
+// A bit set of the D columns (D <= 128): columns 0-63 in `lo`, 64-127 in
+// `hi`.  Two named words, not an array, so that nothing is ever indexed at
+// run time (which would put the set in local memory); at D <= 64 `hi` is
+// never read, and every operation is the single-word one.
+template <int D>
+struct Bits {
+  static_assert(D <= 128, "two words of columns");
+  uint64_t lo = 0, hi = 0;
+  // column block c (16 columns) from a half-warp ballot
+  __device__ __forceinline__ void set_block(int c, unsigned bits16) {
+    const uint64_t b = (uint64_t)(bits16 & 0xffffu) << (kGroup * (c % 4));
+    if (c < 4) lo |= b;
+    else hi |= b;
+  }
+  __device__ __forceinline__ bool test(int j) const {
+    if constexpr (D > 64) {
+      if (j >= 64) return (hi >> (j - 64)) & 1;
+    }
+    return (lo >> j) & 1;
+  }
+  __device__ __forceinline__ bool any() const {
+    if constexpr (D > 64) return (lo | hi) != 0;
+    return lo != 0;
+  }
+  // the lowest set bit's column, D when none is set
+  __device__ __forceinline__ int first() const {
+    if constexpr (D > 64) {
+      if (!lo) return hi ? 64 + __ffsll((long long)hi) - 1 : D;
+    }
+    return lo ? __ffsll((long long)lo) - 1 : D;
+  }
+  __device__ __forceinline__ void clear_first() {
+    if constexpr (D > 64) {
+      if (!lo) {
+        hi &= hi - 1;
+        return;
+      }
+    }
+    lo &= lo - 1;
+  }
+  __device__ __forceinline__ int count() const {
+    if constexpr (D > 64) return __popcll(lo) + __popcll(hi);
+    return __popcll(lo);
+  }
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -317,19 +373,17 @@ __global__ void __launch_bounds__(kThreads) ar_inverse_kernel(
   const bool valid = row < n;   // a group past n runs on zeros and stores nothing
 
   // the masks as bit sets, column j at bit j
-  uint64_t inv = 0, circ = 0;
+  Bits<D> inv, circ;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const int col = lane + kGroup * c;
-    const unsigned bi = __ballot_sync(kFull, invert[col] != 0);
-    const unsigned bc = __ballot_sync(kFull, circular[col] != 0);
-    inv |= (uint64_t)(bi & 0xffffu) << (kGroup * c);
-    circ |= (uint64_t)(bc & 0xffffu) << (kGroup * c);
+    inv.set_block(c, __ballot_sync(kFull, invert[col] != 0));
+    circ.set_block(c, __ballot_sync(kFull, circular[col] != 0));
   }
 
   // thread 0 copies; dim `dim`'s slice goes to slot t % S (t counts
   // inverted dims)
-  uint64_t pending = inv;   // inverted dims whose slice is not issued yet
+  Bits<D> pending = inv;   // inverted dims whose slice is not issued yet
   auto fill = [&](int t, int dim) {
     float* slot = slots + (t % S) * Sh::kSlot;
     uint64_t* bar = &full[t % S];
@@ -350,9 +404,9 @@ __global__ void __launch_bounds__(kThreads) ar_inverse_kernel(
     bulk_load(sb1, b1, 4 * D * H, bias_bar);
     bulk_load(sb2, b2, 4 * D * H, bias_bar);
     bulk_load(sb3, b3, 4 * D * P, bias_bar);
-    for (int t = 0; t < S && pending; ++t) {
-      fill(t, __ffsll((long long)pending) - 1);
-      pending &= pending - 1;
+    for (int t = 0; t < S && pending.any(); ++t) {
+      fill(t, pending.first());
+      pending.clear_first();
     }
   }
 
@@ -365,20 +419,20 @@ __global__ void __launch_bounds__(kThreads) ar_inverse_kernel(
     const int col = lane + kGroup * c;
     const long e = row * D + col;
     zr[c] = valid ? z[e] : 0.f;
-    xr[c] = (valid && !((inv >> col) & 1)) ? xp[e] : 0.f;
+    xr[c] = (valid && !inv.test(col)) ? xp[e] : 0.f;
   }
   const float bnd_deriv = kMinDerivative + softplus(boundary_raw);
   const int u0 = (lane * H) / kGroup;   // first hidden unit this lane owns
   const int kk = lane < K ? lane : K - 1;
-  const int T = __popcll(inv);   // inverted dims
+  const int T = inv.count();   // inverted dims
   __syncthreads();   // the barriers are initialised
   mbar_wait(bias_bar, 0);
 
   // step t inverts dim i; layer 1 of dim i was summed over every known
   // column but the previous step's during that step (pre), so only that
   // column's term is left on the chain
-  uint64_t todo = inv;
-  int i = T ? __ffsll((long long)todo) - 1 : 0;
+  Bits<D> todo = inv;
+  int i = T ? todo.first() : 0;
   float pre[UPL];
   if (T) {
     mbar_wait(&full[0], 0);
@@ -388,8 +442,8 @@ __global__ void __launch_bounds__(kThreads) ar_inverse_kernel(
   float xprev = 0.f;  // (0 before the first step: no term)
 #pragma unroll 1
   for (int t = 0; t < T; ++t) {
-    todo &= todo - 1;
-    const int nx = todo ? __ffsll((long long)todo) - 1 : D;   // next dim
+    todo.clear_first();
+    const int nx = todo.first();   // next dim (D after the last)
     const int slot = t % S;
     if (t + 1 < T) mbar_wait(&full[(t + 1) % S], ((t + 1) / S) & 1);
     const float* w1 = slots + slot * Sh::kSlot;
@@ -400,7 +454,7 @@ __global__ void __launch_bounds__(kThreads) ar_inverse_kernel(
     // z of dim i, wrapped or clamped
     const int ci = i / kGroup;
     const bool mine = lane == (i & (kGroup - 1));   // lane holding column i
-    const bool is_circ = (circ >> i) & 1;
+    const bool is_circ = circ.test(i);
     const float bound = is_circ ? kPi : tail_bound;
     float zsrc = zr[0];
 #pragma unroll
@@ -487,10 +541,10 @@ __global__ void __launch_bounds__(kThreads) ar_inverse_kernel(
       // release the slot; thread 0 refills it with the next inverted dim
       __syncwarp();
       if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[slot]);
-      if (threadIdx.x == 0 && pending) {
+      if (threadIdx.x == 0 && pending.any()) {
         mbar_wait(&empty[slot], (t / S) & 1);
-        fill(t + S, __ffsll((long long)pending) - 1);
-        pending &= pending - 1;
+        fill(t + S, pending.first());
+        pending.clear_first();
       }
     }
   }
@@ -517,6 +571,7 @@ int dispatch(int d, int h, int K, F&& f) {
   NFISAM_AR_CASE_K(16, 8)
   NFISAM_AR_CASE_K(32, 16)
   NFISAM_AR_CASE_K(64, 32)
+  NFISAM_AR_CASE_K(128, 64)
 #undef NFISAM_AR_CASE_K
 #undef NFISAM_AR_CASE
   return (int)cudaErrorInvalidValue;

@@ -14,7 +14,8 @@ through the tree factors (``ptform``), the likelihood of the other
 factors (``loglike``, each factor's ``evaluate_loglike`` row by row) and
 the density of the measure the tree draws from (``log_prior_tree``).
 Each takes ``(n, dim)`` tensors and computes in float32 on their device;
-``ptform`` stays differentiable in ``u`` unless a tree factor is a flow.
+``ptform`` stays differentiable in ``u``, through a flow's masked inverse
+too (its implicit-function VJP, ``flows.ar_inverse.MaskedStackInverse``).
 """
 from __future__ import annotations
 

@@ -4,8 +4,9 @@ Counterpart of ``nfisam_tpu/solver/banked_joint.py`` (the ISAM2 analog of
 the reference's GTSAM harness, ``gtsam_solution.cpp:18``):
 
 * **banks, not factors**: factors are grouped by type into stacked
-  parameter banks (SE(2) priors, SE(2) odometry, R^2 priors, and one
-  range-mixture bank for plain ranges and ambiguous data association), so
+  parameter banks (SE(2) priors, SE(2) odometry, R^2 priors, R^2
+  odometry, and one range-mixture bank for plain ranges and ambiguous
+  data association), so
   the joint negative log density of the whole graph is a few gathers and
   reductions whatever the factor count;
 * **LM-CG**: each Levenberg-Marquardt step solves ``(H + lam I) dx =
@@ -28,8 +29,7 @@ its iteration cap depends on rounding, so the card, the CPU and the JAX
 package would each report another floor (PERF.md); the estimate is kept
 in float32 between solves, as in JAX.  The JAX package pads the state and
 the bank rows to powers of two to bound recompiles, and pins the solver
-to the CPU; the port does neither.  The R^2 relative-odometry bank is not
-ported: a graph with ``R2RelativeGaussianLikelihoodFactor`` raises.
+to the CPU; the port does neither.
 """
 from __future__ import annotations
 
@@ -41,7 +41,8 @@ import torch
 
 from ..core import geometry as geom
 from ..core.variables import Variable
-from ..factors.factors import (Factor, SE2RelativeGaussianLikelihoodFactor,
+from ..factors.factors import (Factor, R2RelativeGaussianLikelihoodFactor,
+                               SE2RelativeGaussianLikelihoodFactor,
                                UnaryR2GaussianPriorFactor,
                                UnarySE2ApproximateGaussianPriorFactor,
                                _RangeFactorBase)
@@ -98,6 +99,14 @@ def _r2_prior_nll(X, mu, prec_chol, log_norm):
     return 0.5 * torch.sum(white * white, -1) - log_norm
 
 
+def _r2_odometry_nll(Y, obs, prec_chol, log_norm):
+    """``Y`` (..., 4): the two ends' positions; the displacement's
+    Gaussian negative log density."""
+    d = Y[..., 2:] - Y[..., :2] - obs
+    white = torch.sum(d[..., :, None] * prec_chol, dim=-2)
+    return 0.5 * torch.sum(white * white, -1) - log_norm
+
+
 def _range_mixture_nll(Y, r, sigma, logw):
     """``Y`` (..., 2 + 2K): the observer's position, then the K candidate
     positions; per component its own range ``r``, ``sigma`` and log
@@ -114,7 +123,8 @@ def _range_mixture_nll(Y, r, sigma, logw):
 
 
 _ROW_NLL = {"sp": _se2_prior_nll, "so": _se2_odometry_nll,
-            "rp": _r2_prior_nll, "rg": _range_mixture_nll}
+            "rp": _r2_prior_nll, "rr": _r2_odometry_nll,
+            "rg": _range_mixture_nll}
 
 
 def _banked_nll(x: torch.Tensor, banks) -> torch.Tensor:
@@ -271,6 +281,16 @@ def lm_cg_solve(x0: torch.Tensor, banks, max_iters: int):
 
 
 # ------------------------------------------------------------------- banks
+def _prec_chol_lognorm(cov):
+    """A Gaussian's precision Cholesky factor and log normaliser, from its
+    covariance."""
+    cov = np.asarray(cov)
+    chol = np.linalg.cholesky(np.linalg.inv(cov))
+    log_norm = -0.5 * (cov.shape[0] * _LOG_TWO_PI +
+                       np.log(np.linalg.det(cov)))
+    return chol, log_norm
+
+
 class FactorBanks:
     """Host-side bank rows of a factor set: ``add`` files a factor under
     its type with the state offsets of its variables; ``to_device`` stacks
@@ -280,6 +300,7 @@ class FactorBanks:
         self.se2p: List[tuple] = []     # (idx, inv_prior, prec_chol, ln)
         self.se2o: List[tuple] = []     # (idx1, idx2, inv_obs, prec_chol, ln)
         self.r2p: List[tuple] = []      # (idx, mu, prec_chol, ln)
+        self.r2r: List[tuple] = []      # (idx1, idx2, obs, prec_chol, ln)
         # range-mixture rows: (observer offset, [(candidate offset, r,
         # sigma, log weight), ...])
         self.rg: List[tuple] = []
@@ -293,12 +314,13 @@ class FactorBanks:
             self.se2o.append((offset[f.vars[0]], offset[f.vars[1]],
                               f.inv_obs, f.prec_chol, f.log_norm))
         elif isinstance(f, UnaryR2GaussianPriorFactor):
-            cov = np.asarray(f.covariance)
-            chol = np.linalg.cholesky(np.linalg.inv(cov))
-            ln = -0.5 * (cov.shape[0] * _LOG_TWO_PI +
-                         np.log(np.linalg.det(cov)))
             self.r2p.append((offset[f.vars[0]],
-                             np.asarray(f.mu, np.float64), chol, ln))
+                             np.asarray(f.mu, np.float64),
+                             *_prec_chol_lognorm(f.covariance)))
+        elif isinstance(f, R2RelativeGaussianLikelihoodFactor):
+            self.r2r.append((offset[f.vars[0]], offset[f.vars[1]],
+                             np.asarray(f.obs, np.float64),
+                             *_prec_chol_lognorm(f.covariance)))
         elif isinstance(f, BinaryFactorMixture):
             comps = []
             for w, c in zip(f.weights, f.components):
@@ -342,6 +364,9 @@ class FactorBanks:
         if self.r2p:
             i, mu, chol, ln = zip(*self.r2p)
             banks["rp"] = (idx(i, width=2), params(mu, chol, ln))
+        if self.r2r:
+            i1, i2, obs, chol, ln = zip(*self.r2r)
+            banks["rr"] = (idx(i1, i2, width=2), params(obs, chol, ln))
         if self.rg:
             n, K = len(self.rg), self.k_max
             cand = np.zeros((n, K), np.int64)

@@ -19,6 +19,7 @@ import torch
 from ..core.distributions import norm_ppf
 from ..core.variables import Variable, circular_dim_list
 from ..factors.factors import grad_rows
+from ..flows.ar_inverse import stack_inverse_masked_differentiable
 from ..flows.model import (CliqueFlowModel, _select_inverse_fn,
                            conditional_draw_core)
 from ..flows.nsf import NSFConfig
@@ -29,21 +30,15 @@ from .checkpoint import CliqueModelStore, clique_signature, content_tag
 from .solver import (CliqueSeparatorFactor, ConditionalSampler,
                      FactorGraphSolver, SolverArgs)
 
-# clique-dim bucketing: every clique pads up to the next power of two at
-# least this large, so a solve hits few flow shapes
+# clique-dim bucketing: by default every clique pads up to the next power
+# of two at least ``dim_bucket_floor`` (this) large, so a solve hits few
+# flow shapes
 DIM_BUCKET_FLOOR = 16
 # NFiSAMArgs fields the port takes only at the JAX package's default:
-# field -> (default, the ROADMAP item that would lift it).  Another
-# bucketing or conditioner width reaches flow shapes the AR-inverse
-# kernel lacks; validation-based stopping and multi-host chunking are not
-# ported
+# field -> (default, the ROADMAP item that would lift it).  Multi-host
+# chunking is not ported
 FIXED_ARGS = {
-    "training_set_frac": (1.0, "A, smaller gaps: validation-based "
-                               "stopping"),
     "host_parallel": ("auto", "A21"),
-    "pad_dim_multiple": (0, "B1a"),
-    "dim_bucket_floor": (DIM_BUCKET_FLOOR, "B1a"),
-    "scale_hidden_with_dim": (True, "B1a"),
 }
 
 
@@ -62,30 +57,40 @@ class NFiSAMArgs(SolverArgs):
     # a directory to write each trained clique's loss curve to
     # (``<sorted clique variable names>.txt``); nothing if it is missing
     training_loss_dir: Optional[str] = None
-    # the JAX package's options the port takes only at their defaults
-    # (``FIXED_ARGS``)
+    # validation-based stopping: below 1, a shuffled held-out part of each
+    # clique's samples is scored every ``validation_interval`` iterations,
+    # and training stops at ``slower_stop_rate`` times the iteration its
+    # loss first rose (the plateau stop is then off)
     training_set_frac: float = 1.0
+    validation_interval: int = 10
+    slower_stop_rate: float = 2.0
+    # multi-host chunking: only "auto" (``FIXED_ARGS``)
     host_parallel: object = "auto"
+    # clique-dim bucketing: 0 pads every clique up to the next power of
+    # two >= ``dim_bucket_floor``; a positive value pads to that multiple
     pad_dim_multiple: int = 0
     dim_bucket_floor: int = DIM_BUCKET_FLOOR
+    # the conditioner width grows with the clique: max(hidden_dim,
+    # aug_dim // 2); False keeps hidden_dim
     scale_hidden_with_dim: bool = True
-
-    def json_str(self) -> str:
-        return self._json({"validation_interval": 10,
-                           "slower_stop_rate": 2.0})
 
     def train_config(self) -> TrainConfig:
         return TrainConfig(
             max_iters=self.flow_iterations,
             learning_rate=self.learning_rate,
             average_window=self.average_window,
-            loss_delta_tol=self.loss_delta_tol)
+            loss_delta_tol=self.loss_delta_tol,
+            validation_interval=self.validation_interval,
+            slower_stop_rate=self.slower_stop_rate,
+            training_set_frac=self.training_set_frac)
 
 
 def effective_hidden_dim(args, aug_dim: int) -> int:
-    """Conditioner width for a clique of ``aug_dim`` columns: it grows
-    with the clique, max(hidden_dim, aug_dim // 2)."""
-    return max(int(args.hidden_dim), int(aug_dim) // 2)
+    """Conditioner width for a clique of ``aug_dim`` columns
+    (``NFiSAMArgs.scale_hidden_with_dim``)."""
+    if getattr(args, "scale_hidden_with_dim", True):
+        return max(int(args.hidden_dim), int(aug_dim) // 2)
+    return int(args.hidden_dim)
 
 
 class FlowModelAdapter(ConditionalSampler):
@@ -169,16 +174,15 @@ class FlowsPriorFactor(CliqueSeparatorFactor):
         separator samples: the flow's masked AR inverse of their normal
         quantiles with the observation columns pinned (the kernel on a
         card).  A flow wider than this factor (frontal and pad columns)
-        takes zeros in the extra dims, which are sliced off."""
+        takes zeros in the extra dims, which are sliced off.  It has a
+        gradient in ``u``: the inverse's implicit-function VJP
+        (``MaskedStackInverse``), where the JAX package differentiates its
+        plain ``stack_inverse``."""
         return self._unif_to_sample(
             u, _select_inverse_fn(self._flow_model.device))
 
     def _unif_to_sample(self, u: torch.Tensor, inverse_fn) -> torch.Tensor:
         """``unif_to_sample`` through the masked AR inverse ``inverse_fn``."""
-        if u.requires_grad:
-            raise NotImplementedError(
-                "FlowsPriorFactor.unif_to_sample has no gradient: the "
-                "masked AR inverse has no backward pass")
         m = self._flow_model
         squeeze = u.ndim == 1
         u = torch.atleast_2d(u).to(m.device, torch.float32)
@@ -191,11 +195,15 @@ class FlowsPriorFactor(CliqueSeparatorFactor):
         if invert_mask is None:
             invert_mask = self._invert_mask = torch.as_tensor(
                 np.arange(m.dim) >= sep, device=m.device)
-        with torch.no_grad():
-            x = conditional_draw_core(
-                m.flow_params, m.mean, m.std, m.circ_mask, z_full,
-                m._padded(self._obs_block(n)), invert_mask, m.cfg,
-                inverse_fn)
+
+        def differentiable(flow_params, z_in, x_prefix, mask, cfg):
+            return stack_inverse_masked_differentiable(
+                flow_params, z_in, x_prefix, mask, cfg, inverse_fn)
+
+        x = conditional_draw_core(
+            m.flow_params, m.mean, m.std, m.circ_mask, z_full,
+            m._padded(self._obs_block(n)), invert_mask, m.cfg,
+            differentiable)
         out = x[:, sep:sep + self.dim]
         return out[0] if squeeze else out
 
@@ -294,8 +302,13 @@ class NFiSAM(FactorGraphSolver):
                          num_flows=self._args.flow_number, circular=circ)
 
     def _dim_bucket(self, aug_dim: int) -> int:
-        """Bucketed flow dim for a clique of ``aug_dim`` columns."""
-        b = DIM_BUCKET_FLOOR
+        """Bucketed flow dim for a clique of ``aug_dim`` columns: the next
+        multiple of ``pad_dim_multiple`` when that is above 1, else the
+        next power of two from ``dim_bucket_floor`` (at least 2) up."""
+        mult = int(self._args.pad_dim_multiple or 0)
+        if mult > 1:
+            return -(-aug_dim // mult) * mult
+        b = max(int(self._args.dim_bucket_floor or DIM_BUCKET_FLOOR), 2)
         while b < aug_dim:
             b *= 2
         return b

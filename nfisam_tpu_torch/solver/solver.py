@@ -28,6 +28,7 @@ import torch
 
 from ..core.variables import Variable, VariableType
 from ..factors.factors import (Factor, ImplicitPriorFactor,
+                               R2RelativeGaussianLikelihoodFactor,
                                SE2RelativeGaussianLikelihoodFactor,
                                _RangeFactorBase)
 from ..factors.mixtures import BinaryFactorMixture
@@ -275,9 +276,9 @@ class FactorGraphSolver:
         within ``MODE_REPAIR_SIGMA`` of the measured ring: the 2nd
         percentile of |dist - r|, so a couple of stray samples cannot mask
         a wrong-mode commitment.  New poses are dead-reckoned through the
-        new SE(2) odometry from committed samples, so a range from the
-        current pose to an old landmark is tested too.  The snapshot is
-        read (one device-to-host copy) only if such a factor exists."""
+        new SE(2) and R^2 odometry from committed samples, so a range from
+        the current pose to an old landmark is tested too.  The snapshot
+        is read (one device-to-host copy) only if such a factor exists."""
         if not any(isinstance(f, (BinaryFactorMixture, _RangeFactorBase))
                    and any(v in old_nodes for v in f.vars)
                    for f in self._new_factors):
@@ -296,11 +297,17 @@ class FactorGraphSolver:
         while progress:
             progress = False
             for f in self._new_factors:
-                if not isinstance(f, SE2RelativeGaussianLikelihoodFactor):
+                if not isinstance(f, (SE2RelativeGaussianLikelihoodFactor,
+                                      R2RelativeGaussianLikelihoodFactor)):
                     continue
                 v1, v2 = f.vars[0], f.vars[1]
                 s1 = lookup(v1)
                 if s1 is None or lookup(v2) is not None:
+                    continue
+                progress = True
+                if isinstance(f, R2RelativeGaussianLikelihoodFactor):
+                    dr[v2] = s1[:, :2] + np.asarray(f.obs[:2],
+                                                    dtype=s1.dtype)
                     continue
                 c, s = np.cos(s1[:, 2]), np.sin(s1[:, 2])
                 dx, dy, dth = (float(f.obs[0]), float(f.obs[1]),
@@ -309,7 +316,6 @@ class FactorGraphSolver:
                     [s1[:, 0] + c * dx - s * dy,
                      s1[:, 1] + s * dx + c * dy,
                      s1[:, 2] + dth], axis=1)
-                progress = True
 
         specs = []          # (factor, [(v1, v2, r, sigma), ...])
         for f in self._new_factors:

@@ -7,11 +7,16 @@ correction) on one flat parameter vector, gradients by autograd through
 the forward RQS, and the loss-plateau stop: at an iteration ``t`` with
 ``t % w == 0 and t >= 2w`` the mean losses of the last two windows are
 compared, and if their relative change is below ``loss_delta_tol`` the
-update of that iteration is skipped and training ends.  The losses stay
-on the device; the host reads them only at those checks.  The JAX
-package's validation-based stop (``training_set_frac < 1``) is not ported.
-``fit_flows_batched`` trains a stack of same-signature cliques in one
-loop, as the JAX package's ``vmap`` of the fit does.
+update of that iteration is skipped and training ends.  With
+``training_set_frac < 1`` the samples are shuffled and split, and the
+validation-based "slower stop" replaces the plateau stop: every
+``validation_interval`` iterations (at ``t + 1`` a multiple of it) the
+held-out loss is computed with the parameters before that iteration's
+update; the first time it rises above the last one kept, training is set
+to stop at iteration ``slower_stop_rate * (t + 1)``, whose update is
+skipped.  The losses stay on the device; the host reads them only at those
+checks.  ``fit_flows_batched`` trains a stack of same-signature cliques
+in one loop, as the JAX package's ``vmap`` of the fit does.
 """
 from __future__ import annotations
 
@@ -37,6 +42,9 @@ class TrainConfig:
     learning_rate: float = 0.015
     average_window: int = 50
     loss_delta_tol: float = 1e-2
+    validation_interval: int = 10
+    slower_stop_rate: float = 2.0
+    training_set_frac: float = 1.0
 
 
 def _flatten(flow_params: List[dict]):
@@ -66,10 +74,19 @@ def plateau_window(tc: TrainConfig) -> int:
     return min(tc.average_window, max(tc.max_iters // 2, 1))
 
 
+def slower_stop_iteration(tc: TrainConfig, t: int) -> int:
+    """The stop the validation rule sets when the held-out loss rises at
+    iteration ``t``: ``slower_stop_rate * (t + 1)`` in float32, truncated,
+    as the JAX package's ``jnp.int32`` of it."""
+    return int(np.float32(tc.slower_stop_rate) * np.float32(t + 1))
+
+
 def train_flow(flow_params: List[dict], data: torch.Tensor, cfg: NSFConfig,
-               tc: TrainConfig):
+               tc: TrainConfig, test_data: torch.Tensor | None = None):
     """Adam on the full batch ``data`` (normalized samples) from
-    ``flow_params``.  Returns (params, iter_loss (max_iters,), n_iters)."""
+    ``flow_params``, with the plateau stop, or the validation stop on
+    ``test_data`` when it is given.  Returns (params, iter_loss
+    (max_iters,), n_iters)."""
     base = BaseDistribution(cfg.circular_mask)
     flat, unravel = _flatten(flow_params)
     flat.requires_grad_(True)
@@ -78,17 +95,31 @@ def train_flow(flow_params: List[dict], data: torch.Tensor, cfg: NSFConfig,
     iter_loss = torch.zeros(tc.max_iters, dtype=torch.float32,
                             device=data.device)
     w = plateau_window(tc)
+    last_val, slow = float("inf"), -1
     t = 0
     while t < tc.max_iters:
-        if t % w == 0 and t >= 2 * w:
+        if test_data is not None:
+            if (t + 1) % tc.validation_interval == 0 and slow < 0:
+                with torch.no_grad():
+                    val = float(negative_log_likelihood(
+                        unravel(flat), test_data, cfg, base))
+                if val > last_val:
+                    slow = slower_stop_iteration(tc, t)
+                else:
+                    last_val = val
+            stop = slow >= 0 and t + 1 >= slow
+        elif t % w == 0 and t >= 2 * w:
             cur = iter_loss[t - w:t].mean()
             prev = iter_loss[t - 2 * w:t - w].mean()
             prev = torch.where(prev == 0.0, torch.ones_like(prev), prev)
-            if float(torch.abs(1.0 - cur / prev)) < tc.loss_delta_tol:
-                # stopping iteration: no update, loss curve kept continuous
-                iter_loss[t] = iter_loss[t - 1]
-                t += 1
-                break
+            stop = float(torch.abs(1.0 - cur / prev)) < tc.loss_delta_tol
+        else:
+            stop = False
+        if stop:
+            # stopping iteration: no update, loss curve kept continuous
+            iter_loss[t] = iter_loss[max(t - 1, 0)]
+            t += 1
+            break
         loss = negative_log_likelihood(unravel(flat), data, cfg, base)
         (grad,) = torch.autograd.grad(loss, flat)
         with torch.no_grad():
@@ -106,18 +137,30 @@ def train_flow(flow_params: List[dict], data: torch.Tensor, cfg: NSFConfig,
 
 
 def _init_and_normalize(key, samples_raw: torch.Tensor, cfg: NSFConfig,
-                        circular_dim_list, scale_circular: bool):
-    """One clique's start: flow parameters from the key, the normalizer
-    and the normalized samples.  Returns (params, xn, mean, std)."""
+                        circular_dim_list, scale_circular: bool,
+                        tc: TrainConfig):
+    """One clique's start: flow parameters from the key; with a held-out
+    part, the samples shuffled by a permutation from the key; the
+    normalizer over all of them, and the normalized samples split.
+    Returns (params, train rows, held-out rows or None, mean, std)."""
     device = samples_raw.device
     samples_raw = samples_raw.to(torch.float32)
-    k_init, _ = split_host(key, 2)
+    k_init, k_shuffle = split_host(key, 2)
     params = init_flow_params(torch_generator(k_init, device), cfg, device)
+    n = samples_raw.shape[0]
+    n_train = min(int(n * tc.training_set_frac), n)   # the rest held out
+    if n_train < n:
+        # the split needs the shuffle; the full-batch loss does not
+        perm = torch.randperm(n, generator=torch_generator(k_shuffle, device),
+                              device=device)
+        samples_raw = samples_raw[perm]
     circ = torch.as_tensor(np.asarray(circular_dim_list, dtype=bool),
                            device=device)
     mean, std = compute_normalizer(samples_raw, circ,
                                    scale_circular=scale_circular)
-    return params, normalize(samples_raw, mean, std, circ), mean, std
+    xn = normalize(samples_raw, mean, std, circ)
+    test = xn[n_train:] if n_train < n else None
+    return params, xn[:n_train], test, mean, std
 
 
 def fit_flow_raw(key, samples_raw: torch.Tensor, cfg: NSFConfig,
@@ -126,25 +169,28 @@ def fit_flow_raw(key, samples_raw: torch.Tensor, cfg: NSFConfig,
     """Fit a clique flow from raw (unnormalized) samples: init from the
     key, normalize, train.  Returns (params, iter_loss, n_iters, mean,
     std)."""
-    params, xn, mean, std = _init_and_normalize(
-        key, samples_raw, cfg, circular_dim_list, scale_circular)
-    params, iter_loss, n_iters = train_flow(params, xn, cfg, tc)
+    params, train, test, mean, std = _init_and_normalize(
+        key, samples_raw, cfg, circular_dim_list, scale_circular, tc)
+    params, iter_loss, n_iters = train_flow(params, train, cfg, tc, test)
     return params, iter_loss, n_iters, mean, std
 
 
 def train_flows_batched(flow_params: List[dict], data: torch.Tensor,
-                        cfg: NSFConfig, tc: TrainConfig):
+                        cfg: NSFConfig, tc: TrainConfig,
+                        test_data: torch.Tensor | None = None):
     """``train_flow`` for B independent members in lockstep:
     ``flow_params`` carry a leading member axis on every tensor, ``data``
-    is (B, n, dim).  Returns (params, iter_loss (B, max_iters), n_iters
-    as a list of B ints).
+    is (B, n, dim), ``test_data`` (B, n_test, dim) or None.  Returns
+    (params, iter_loss (B, max_iters), n_iters as a list of B ints).
 
     The JAX package runs ``vmap`` of its ``while_loop``; this is that
-    loop's semantics on the host: every member checks the plateau at the
-    same ``t``, a member that plateaus skips that update, records
+    loop's semantics on the host: every member checks its stop rule at the
+    same ``t``, a member that stops skips that update, records
     ``n_iters = t + 1`` and stays frozen (parameters, Adam moments, loss
     curve) from then on, and the loop ends when every member has stopped
-    or at ``max_iters``.  The host reads the B stop flags once a window.
+    or at ``max_iters``.  The host reads the B plateau flags once a
+    window, or the B held-out losses once a validation interval (a
+    member's stop iteration is then known on the host).
     """
     base = BaseDistribution(cfg.circular_mask)
     B = data.shape[0]
@@ -161,6 +207,7 @@ def train_flows_batched(flow_params: List[dict], data: torch.Tensor,
     # then the very function ``train_flow`` differentiates, and one set of
     # launches a step serves all B members
     grad_and_loss = torch.func.vmap(torch.func.grad_and_value(member_loss))
+    val_losses = torch.func.vmap(member_loss)
     mu = torch.zeros_like(flat)
     nu = torch.zeros_like(flat)
     iter_loss = torch.zeros((B, tc.max_iters), dtype=torch.float32,
@@ -169,9 +216,25 @@ def train_flows_batched(flow_params: List[dict], data: torch.Tensor,
     running = [True] * B
     active = torch.ones((B, 1), dtype=torch.bool, device=data.device)
     w = plateau_window(tc)
+    last_val, slow = [float("inf")] * B, [-1] * B
     t = 0
     while t < tc.max_iters:
-        if t % w == 0 and t >= 2 * w:
+        stopping = []
+        if test_data is not None:
+            if (t + 1) % tc.validation_interval == 0 and \
+                    any(running[b] and slow[b] < 0 for b in range(B)):
+                with torch.no_grad():
+                    vals = val_losses(flat, test_data).tolist()
+                for b, val in enumerate(vals):
+                    if not running[b] or slow[b] >= 0:
+                        continue
+                    if val > last_val[b]:
+                        slow[b] = slower_stop_iteration(tc, t)
+                    else:
+                        last_val[b] = val
+            stopping = [b for b in range(B) if running[b] and
+                        0 <= slow[b] <= t + 1]
+        elif t % w == 0 and t >= 2 * w:
             # each member's windows reduced as ``train_flow`` reduces them,
             # so a member stops where its own fit would
             cur = torch.stack([iter_loss[b, t - w:t].mean()
@@ -180,11 +243,13 @@ def train_flows_batched(flow_params: List[dict], data: torch.Tensor,
                                 for b in range(B)])
             prev = torch.where(prev == 0.0, torch.ones_like(prev), prev)
             deltas = torch.abs(1.0 - cur / prev).tolist()
-            for b, delta in enumerate(deltas):
-                if delta < tc.loss_delta_tol and running[b]:
-                    running[b] = False
-                    iter_loss[b, t] = iter_loss[b, t - 1]
-                    n_iters[b] = t + 1
+            stopping = [b for b, delta in enumerate(deltas)
+                        if delta < tc.loss_delta_tol and running[b]]
+        if stopping:
+            for b in stopping:
+                running[b] = False
+                iter_loss[b, t] = iter_loss[b, max(t - 1, 0)]
+                n_iters[b] = t + 1
             if not any(running):
                 break
             active = torch.as_tensor(running, device=data.device)[:, None]
@@ -233,12 +298,15 @@ def fit_flows_batched(keys, samples_stack: torch.Tensor, cfg: NSFConfig,
     keys = np.asarray(keys)
     masks = np.asarray(circ_masks, dtype=bool)
     starts = [_init_and_normalize(keys[b], samples_stack[b], cfg, masks[b],
-                                  scale_circular)
+                                  scale_circular, tc)
               for b in range(samples_stack.shape[0])]
     params0 = [{k: torch.stack([s[0][f][k] for s in starts])
                 for k in PARAM_NAMES} for f in range(cfg.num_flows)]
     data = torch.stack([s[1] for s in starts])
-    params, iter_loss, n_iters = train_flows_batched(params0, data, cfg, tc)
+    test = None if starts[0][2] is None else \
+        torch.stack([s[2] for s in starts])
+    params, iter_loss, n_iters = train_flows_batched(params0, data, cfg, tc,
+                                                     test)
     return (params, iter_loss, n_iters,
-            torch.stack([s[2] for s in starts]),
-            torch.stack([s[3] for s in starts]))
+            torch.stack([s[3] for s in starts]),
+            torch.stack([s[4] for s in starts]))

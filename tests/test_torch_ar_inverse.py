@@ -21,6 +21,7 @@ from nfisam_tpu_torch.flows import (NSFConfig, ar_inverse_kernel,
                                     flow_params_from_numpy,
                                     stack_inverse_masked_cuda,
                                     stack_inverse_masked_plain)
+from nfisam_tpu_torch.flows.ar_inverse import kernel_variant
 from nfisam_tpu_torch.flows.model import _select_inverse_fn
 
 torch.set_num_threads(1)
@@ -156,7 +157,21 @@ def test_cpu_tensors_take_the_plain_version_and_the_kernel_refuses_them():
 
 
 def test_kernel_refuses_shapes_it_has_no_instantiation_for():
+    """Every shape goes to one of the two kernels (``kernel_variant``): a
+    d/h/K of the specialised kernel's instantiations to it, any other d >=
+    1, h >= 1, K >= 2 to the generic one; a shape outside that range
+    raises before anything launches, as a CPU tensor does."""
+    assert kernel_variant(16, 8, 9) == "specialized"
+    assert kernel_variant(128, 64, 12) == "specialized"
+    assert kernel_variant(6, 8, 7) == "generic"
+    assert kernel_variant(16, 8, 11) == "generic"
+    before = dict(ar_inverse_kernel.variant_launches)
     _, cfg, _, params, z, xp, mask = _setup(6, n=8, K=7)
-    with pytest.raises(ValueError, match="no instantiation"):
+    with pytest.raises(ValueError, match="CUDA"):
         ar_inverse_kernel(params[0], torch.as_tensor(z), torch.as_tensor(xp),
                           torch.as_tensor(mask), cfg)
+    bad = NSFConfig(dim=6, num_knots=1, hidden_dim=8)
+    with pytest.raises(ValueError, match="no kernel"):
+        ar_inverse_kernel(params[0], torch.as_tensor(z), torch.as_tensor(xp),
+                          torch.as_tensor(mask), bad)
+    assert ar_inverse_kernel.variant_launches == before

@@ -88,16 +88,23 @@ def _port_case1(args, ckpt, parallel=True):
         group_nodes_factors_incrementally(nodes, fs, 1))
 
 
-@pytest.fixture(scope="module", params=["parallel", "sequential"])
+# the flow options: another bucketing and width, and the validation split
+OPTIONS = dict(pad_dim_multiple=4, hidden_dim=12,
+               scale_hidden_with_dim=False, training_set_frac=0.8)
+
+
+@pytest.fixture(scope="module",
+                params=["parallel", "sequential", "parallel, flow options"])
 def stores(request, tmp_path_factory):
-    """case1 at SMALL by both packages' ``ParallelNFiSAM`` or ``NFiSAM``,
-    each into its own store."""
-    parallel = request.param == "parallel"
+    """case1 at SMALL (with ``OPTIONS`` where named) by both packages'
+    ``ParallelNFiSAM`` or ``NFiSAM``, each into its own store."""
+    parallel = request.param.startswith("parallel")
+    args = {**SMALL, **OPTIONS} if "options" in request.param else SMALL
     jdir = str(tmp_path_factory.mktemp("jax_store"))
     tdir = str(tmp_path_factory.mktemp("port_store"))
-    j_trained, j_solver = _jax_case1(SMALL, jdir, parallel)
-    t_trained, _ = _port_case1(SMALL, tdir, parallel)
-    return jdir, tdir, j_trained, t_trained, parallel
+    j_trained, j_solver = _jax_case1(args, jdir, parallel)
+    t_trained, _ = _port_case1(args, tdir, parallel)
+    return jdir, tdir, j_trained, t_trained, parallel, args
 
 
 def test_store_round_trip(tmp_path):
@@ -168,8 +175,9 @@ def test_warm_start_trains_no_clique(tmp_path):
 def test_clique_signatures_match_jax(stores):
     """Both packages trained the same cliques at every step and stored
     them under the same signatures, with the same configuration, column
-    flags, dims and content tags."""
-    jdir, tdir, j_trained, t_trained, _ = stores
+    flags, dims and content tags: with the flow options too, so the
+    padded dim and the width reach both the same way."""
+    jdir, tdir, j_trained, t_trained, _, _ = stores
     assert t_trained == j_trained
     with open(os.path.join(jdir, "manifest.json")) as f:
         theirs = json.load(f)
@@ -180,10 +188,10 @@ def test_clique_signatures_match_jax(stores):
 
 
 def test_jax_store_restores_with_no_training(stores, tmp_path):
-    jdir, _, _, _, parallel = stores
+    jdir, _, _, _, parallel, args = stores
     ckpt = str(tmp_path / "ckpt")
     shutil.copytree(jdir, ckpt)
-    trained, solver = _port_case1(SMALL, ckpt, parallel)
+    trained, solver = _port_case1(args, ckpt, parallel)
     assert trained == [[]] * 6
     assert all(np.isfinite(x.numpy()).all()
                for x in solver._samples.values())

@@ -91,10 +91,57 @@ def test_cuda_kernel_raises_on_bad_inputs(cuda):
     wide = torch.zeros((100, 32), device=cuda)
     with pytest.raises(ValueError, match="non-contiguous"):
         ar_inverse_kernel(params[0], wide[:, ::2], xp, mask, cfg)
-    with pytest.raises(ValueError, match="no instantiation"):
+    with pytest.raises(ValueError, match="no kernel"):
         ar_inverse_kernel(params[0], z, xp, mask,
-                          NSFConfig(dim=16, num_knots=11, hidden_dim=8))
+                          NSFConfig(dim=16, num_knots=1, hidden_dim=8))
     assert ar_inverse_kernel.launches == before
+
+
+def test_cuda_each_shape_launches_one_kernel(cuda):
+    """A specialised shape counts on the specialised kernel, any other
+    on the generic one; the generic kernel takes weights off the 16-byte
+    alignment (it reads them through the read-only cache)."""
+    for case, variant in ((("spec", 64, 16, 8, 9, 1, 2, ()), "specialized"),
+                          (("gen", 64, 16, 16, 9, 1, 2, ()), "generic")):
+        (cfg, p_cpu, z_cpu, xp_cpu, m_cpu), (_, params, z, xp, mask) = \
+            _case(case)
+        before = dict(ar_inverse_kernel.variant_launches)
+        stack_inverse_masked_cuda(params, z, xp, mask, cfg)
+        after = ar_inverse_kernel.variant_launches
+        assert after[variant] == before[variant] + 1
+        assert sum(after.values()) == sum(before.values()) + 1
+    t = params[0]["W1"]
+    buf = torch.empty(t.numel() + 1, device=cuda)
+    moved = buf[1:].view(t.shape)
+    moved.copy_(t)
+    got = ar_inverse_kernel({**params[0], "W1": moved}, z, xp, mask, cfg)
+    ref = stack_inverse_masked_plain(p_cpu, z_cpu, xp_cpu, m_cpu, cfg)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("case", chip_smoke.GRAD_CASES,
+                         ids=[c[0] for c in chip_smoke.GRAD_CASES])
+def test_cuda_masked_inverse_gradient_matches_plain_autograd(cuda, case):
+    """``MaskedStackInverse`` with the kernel's forward: its VJP against
+    autograd through the plain inverse on the card, within GRAD_RTOL of
+    each entry and of the largest."""
+    from nfisam_tpu_torch.flows.ar_inverse import \
+        stack_inverse_masked_differentiable
+    _, (cfg, params, z, xp, mask) = _case(case)
+    w = torch.randn(z.shape, generator=torch.Generator(cuda).manual_seed(1),
+                    device=cuda)
+    grads = []
+    for run in (lambda zz: stack_inverse_masked_differentiable(
+                    params, zz, xp, mask, cfg, stack_inverse_masked_cuda),
+                lambda zz: stack_inverse_masked_plain(params, zz, xp, mask,
+                                                      cfg)):
+        zz = z.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad((run(zz) * w).sum(), zz)
+        grads.append(g)
+    got, ref = grads
+    tol = chip_smoke.GRAD_RTOL * (ref.abs() + ref.abs().max())
+    assert bool(((got - ref).abs() <= tol).all())
+    assert float(got[:, ~mask].abs().max()) == 0.0
 
 
 def test_cuda_kernel_raises_on_misaligned_weights(cuda):
@@ -123,7 +170,13 @@ def test_cuda_build_facts_of_every_instantiation(cuda):
             info = ar_inverse_kernel.info(d, h, K)
             assert info["local_bytes"] == 0, (d, h, K, info)
             assert info["threads"] == 128 and info["smem_bytes"] <= 232448
-            assert info["slots"] == (d if d < 64 else 3)
+            assert info["variant"] == "specialized"
+            # the whole flow at d <= 32, else the largest ring that fits:
+            # 3 slots at d=64 and at d=128 with K=5, 2 at d=128 above
+            assert info["slots"] == {16: 16, 32: 32, 64: 3}.get(
+                d, 3 if K == 5 else 2)
+    generic = ar_inverse_kernel.info(16, 16, 9)
+    assert generic["variant"] == "generic" and generic["local_bytes"] == 0
 
 
 def test_cuda_model_draws_through_the_kernel(cuda):
@@ -280,7 +333,7 @@ def test_cuda_cli_solve_runs_on_the_card(cuda, tmp_path):
     from nfisam_tpu_torch import cli
     from nfisam_tpu_torch.flows import ar_inverse_kernel
 
-    ar_inverse_kernel.launches = 0
+    ar_inverse_kernel.reset_launches()
     assert cli.main(["solve", "--fg", chip_smoke.CASE1_FG, "--out",
                      str(tmp_path), "--iters", "30", "--train-samples",
                      "300", "--posterior-samples", "200",

@@ -23,7 +23,9 @@ Element by element on the same float32 inputs (seeded numpy):
   observation prefix pinned) against the JAX package's ``stack_inverse``:
   atol 1e-4 and rtol 1e-4 (the rational-quadratic spline's inverse in
   float32 rounds differently in the two packages, as the flow tests
-  found), with and without observation columns.
+  found), with and without observation columns, and its gradient in the
+  unit-cube coordinates against ``jax.grad`` of the JAX factor's: rtol
+  1e-4 and atol 1e-4 of the largest entry.
 
 The slip/grip and bearing factors have no gradient in either package."""
 import dataclasses
@@ -238,11 +240,12 @@ def test_mixture_loglike_takes_both_sides_of_the_5_nat_rule():
     assert branches == {True, False}
 
 
-def _flow_prior_pair(obs_dim: int, seed: int = 0):
-    """A random 16-dim NSF-AR flow (K=9, h=8) carried from the JAX package
-    to the port, behind each package's ``FlowsPriorFactor`` over [X1
-    (SE2), L1 (R2)] with ``obs_dim`` observation columns before them."""
-    cfg = JConfig(dim=16, num_knots=9, hidden_dim=8, num_flows=1)
+def _flow_prior_pair(obs_dim: int, seed: int = 0, num_flows: int = 1):
+    """A random 16-dim NSF-AR flow stack (K=9, h=8, ``num_flows`` flows)
+    carried from the JAX package to the port, behind each package's
+    ``FlowsPriorFactor`` over [X1 (SE2), L1 (R2)] with ``obs_dim``
+    observation columns before them."""
+    cfg = JConfig(dim=16, num_knots=9, hidden_dim=8, num_flows=num_flows)
     rng = np.random.default_rng(seed)
     params = [{k: np.asarray(v) + rng.normal(0, 0.3, np.shape(v)).astype(
         np.float32) for k, v in p.items()}
@@ -287,10 +290,57 @@ def test_flows_prior_unif_to_sample_and_grad_match_jax(obs_dim):
                                _theirs(theirs, "log_pdf", got), **GRAD_TOL)
 
 
-def test_flows_prior_unif_to_sample_refuses_a_gradient():
-    """The masked AR inverse has no backward pass (the kernel computes it
-    on a card), so a differentiable caller is told, not given zeros."""
-    ours, _ = _flow_prior_pair(2)
-    u = torch.full((3, 5), 0.5, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        ours.unif_to_sample(u)
+@pytest.mark.parametrize("obs_dim,num_flows", [(0, 1), (2, 1), (3, 2)],
+                         ids=["0", "2", "3-2flows"])
+def test_flows_prior_unif_to_sample_gradient_matches_jax(obs_dim, num_flows):
+    """``unif_to_sample`` is differentiable (the masked inverse's
+    implicit-function VJP): the gradient of a weighted sum of its output
+    in ``u`` against ``jax.grad`` of the JAX factor's (its plain
+    ``stack_inverse`` differentiated): rtol 1e-4 and atol 1e-4 of the
+    largest entry (the two forwards agree to 1e-4 only, and the gradient
+    at a point moved by that much moves by a few times it).  The 2-flow
+    stack checks that the backward walks the flows in reverse."""
+    ours, theirs = _flow_prior_pair(obs_dim, num_flows=num_flows)
+    rng = np.random.default_rng(6)
+    u = rng.uniform(0.02, 0.98, (N, 5)).astype(np.float32)
+    w = rng.normal(size=(N, 5)).astype(np.float32)
+    ut = torch.as_tensor(u).requires_grad_(True)
+    (torch.as_tensor(w) * ours.unif_to_sample(ut)).sum().backward()
+    want = jax.grad(lambda uu: jnp.sum(w * theirs.unif_to_sample(uu)))(
+        jnp.asarray(u))
+    assert np.isfinite(ut.grad.numpy()).all()
+    want = np.asarray(want)
+    np.testing.assert_allclose(ut.grad.numpy(), want, rtol=1e-4,
+                               atol=1e-4 * np.abs(want).max())
+
+def test_grad_proposal_over_a_flow_prior_matches_jax_in_distribution():
+    """``GlobalNestedSampler(proposal="grad")`` over a clique whose tree
+    prior is a flow (``_flow_prior_pair``'s, over X1 and L1) and whose
+    likelihood is a range between them: the proposal differentiates
+    ``loglike(ptform(u))`` through ``unif_to_sample``.  Against the JAX
+    package's sampler on the same factors (100 live points, dlogz 0.5):
+    logz within max(3.5 of the two errors combined, 0.35), and the MMD of
+    the two sample sets within 1.5x the MMD between the JAX package's own
+    runs from two keys (the sampling noise at this size)."""
+    from nfisam_tpu.samplers.nested import GlobalNestedSampler as JNS
+    from nfisam_tpu_torch.eval import mmd
+    from nfisam_tpu_torch.samplers.nested import GlobalNestedSampler
+
+    ours, theirs = _flow_prior_pair(2)
+    runs = []
+    for f, fac, new, key in (
+            (ours, tfactors, lambda n, fs: GlobalNestedSampler(
+                n, fs, device="cpu"), 3), (theirs, jfactors, JNS, 3),
+            (theirs, jfactors, JNS, 4)):
+        x1, l1 = f.vars
+        summary = {}
+        samples = new([x1, l1], [f, fac.SE2R2RangeGaussianLikelihoodFactor(
+            x1, l1, 4.0, 0.5)]).sample(
+                key=np.array([0, key], np.uint32), live_points=100,
+                proposal="grad", dlogz=0.5, res_summary=summary)
+        assert np.isfinite(samples).all()
+        runs.append((np.asarray(samples), summary))
+    (a, sa), (b, sb), (c, _) = runs
+    assert abs(sa["logz"] - sb["logz"]) <= max(
+        3.5 * np.hypot(sa["logzerr"], sb["logzerr"]), 0.35)
+    assert mmd(a, b) <= 1.5 * mmd(b, c)

@@ -5,7 +5,8 @@
   a committed landmark, a consistent one, a range from a new pose
   dead-reckoned through new odometry (contradicted and consistent), and
   a data-association mixture (every hypothesis contradicted, and one
-  consistent).  200 posterior rows, so both read every row (the port
+  consistent), and a range from a new R^2 pose dead-reckoned through new
+  R^2 odometry (contradicted and consistent).  200 posterior rows, so both read every row (the port
   reads at most 256, JAX's fallback all).
 - ``prune_affected(touched, deep=...)`` gives the same affected variables
   and detached subtree roots as JAX on plaza1_ada0.2's first 6 steps.
@@ -82,6 +83,13 @@ CASES = {
     "mixture_consistent": ({"L1": (-4.0, 0.0), "L2": (4.0, 0.5)},
                            [("odom", "X0", "X1"),
                             ("ada", "X1", ("L1", "L2"), 1.0)], set()),
+    # R^2 poses: the new pose X1 is dead-reckoned through R^2 odometry
+    "r2_dead_reckoned": ({"L1": (-4.0, 0.0)},
+                         [("r2odom", "X0", "X1"),
+                          ("range", "X1", "L1", 1.0)], {"L1"}),
+    "r2_dead_reckoned_consistent": ({"L1": (4.0, 0.0)},
+                                    [("r2odom", "X0", "X1"),
+                                     ("range", "X1", "L1", 1.0)], set()),
 }
 
 
@@ -89,12 +97,14 @@ def _case_inputs(core, factors, case):
     """(variables by name, committed posterior arrays by name, new
     factors) of one case in one package."""
     lmks, specs, _ = CASES[case]
-    vs = {"X0": core.SE2Variable("X0"), "X1": core.SE2Variable("X1")}
+    r2 = any(spec[0] == "r2odom" for spec in specs)
+    pose = core.R2Variable if r2 else core.SE2Variable
+    vs = {"X0": pose("X0"), "X1": pose("X1")}
     for name in lmks:
         vs[name] = core.R2Variable(name, core.VariableType.Landmark)
     rng = np.random.default_rng(5)
     post = {"X0": (rng.normal(size=(200, 3)) * [0.05, 0.05, 0.01]).astype(
-        np.float32)}
+        np.float32)[:, :vs["X0"].dim]}
     for name, xy in lmks.items():
         post[name] = (np.asarray(xy) + rng.normal(size=(200, 2)) * 0.1
                       ).astype(np.float32)
@@ -103,9 +113,14 @@ def _case_inputs(core, factors, case):
         if spec[0] == "odom":
             new.append(factors.SE2RelativeGaussianLikelihoodFactor(
                 vs[spec[1]], vs[spec[2]], np.array([3.0, 0.0, 0.0]), COV3))
+        elif spec[0] == "r2odom":
+            new.append(factors.R2RelativeGaussianLikelihoodFactor(
+                vs[spec[1]], vs[spec[2]], np.array([3.0, 0.0]),
+                COV3[:2, :2]))
         elif spec[0] == "range":
-            new.append(factors.SE2R2RangeGaussianLikelihoodFactor(
-                vs[spec[1]], vs[spec[2]], spec[3], 0.3))
+            rng_cls = factors.R2RangeGaussianLikelihoodFactor if r2 else \
+                factors.SE2R2RangeGaussianLikelihoodFactor
+            new.append(rng_cls(vs[spec[1]], vs[spec[2]], spec[3], 0.3))
         else:
             new.append(factors.AmbiguousDataAssociationFactor(
                 vs[spec[1]], [vs[n] for n in spec[2]], [0.5, 0.5],

@@ -35,7 +35,8 @@ from nfisam_tpu_torch.eval import mmd  # noqa: E402
 from nfisam_tpu_torch.flows import CliqueFlowModel  # noqa: E402
 from nfisam_tpu_torch.io import graph_file_parser  # noqa: E402
 from nfisam_tpu_torch.io import group_nodes_factors_incrementally  # noqa: E402
-from nfisam_tpu_torch.solver import NFiSAM, NFiSAMArgs  # noqa: E402
+from nfisam_tpu_torch.solver import (NFiSAM, NFiSAMArgs,  # noqa: E402
+                                     effective_hidden_dim)
 
 torch.set_num_threads(1)
 CASE1 = chip_smoke.CASE1_FG
@@ -238,12 +239,38 @@ def test_solver_without_device_raises_on_a_cpu_only_host():
 
 
 @pytest.mark.parametrize("bad", [dict(elimination_method="minimum_degree"),
-                                 dict(pad_dim_multiple=8),
+                                 dict(host_parallel=True),
                                  dict(elimination_method="colamd"),
                                  dict(flow_type="RealNVP")])
 def test_unported_options_raise(bad):
+    """Options the port does not take raise; multi-host chunking
+    (``host_parallel``, ROADMAP A21) is the one ``NFiSAMArgs`` field left
+    at its JAX default (``FIXED_ARGS``)."""
     with pytest.raises(NotImplementedError):
         NFiSAM(NFiSAMArgs(**{**SMALL, **bad}), device="cpu")
+
+
+@pytest.mark.parametrize("opts", [dict(pad_dim_multiple=8),
+                                  dict(dim_bucket_floor=32),
+                                  dict(hidden_dim=12),
+                                  dict(scale_hidden_with_dim=False),
+                                  dict(training_set_frac=0.8),
+                                  dict(num_knots=3)])
+def test_flow_options_run(opts):
+    """The JAX package's flow options, which raised before the generic
+    kernel and the validation stop: the first case1 step solves, and the
+    flow has the bucket and width the options give."""
+    nodes, _, factors = graph_file_parser(CASE1)
+    args = NFiSAMArgs(**{**SMALL, "flow_iterations": 20, **opts})
+    solver = NFiSAM(args, device="cpu")
+    steps, _ = _solve(solver, group_nodes_factors_incrementally(
+        nodes, factors, 1)[:1], lambda x: x.numpy())
+    for adapter in solver._clique_density_model.values():
+        cfg = adapter.model.cfg
+        assert cfg.dim == solver._dim_bucket(cfg.dim)
+        assert cfg.hidden_dim == effective_hidden_dim(args, cfg.dim)
+        assert cfg.num_knots == args.num_knots
+    assert all(np.isfinite(x).all() for x in steps[0]["samples"].values())
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
