@@ -9,19 +9,24 @@ of JAX or of the JAX package, and exits non-zero if any phase fails:
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile every kernel source (``nfisam_tpu_torch/csrc``: the
    specialised AR inverse and the generic one, in parallel); print each
-   specialised instantiation's registers, local memory, shared memory,
-   ring slots and block shape, and fail if one uses local memory (a stack
-   frame or spills); print the generic kernel's;
+   instantiation's registers, local memory, shared memory, weight slots
+   and block shape (the generic kernel's nine at every generic shape of
+   the cases, with its lanes a sample and how it holds the weights), and
+   fail if one uses local memory (a stack frame or spills);
 3. kernel vs plain: each case against the plain PyTorch version on the
    card, through the kernel ``kernel_variant`` names (the solver's shapes
-   and edge cases, the 128 bucket, the JAX tests' shapes and the flow
-   options' shapes on the generic kernel), then both kernels timed with
-   CUDA events at the main path's shapes, at d=32, 64 and 128, with every
-   column pinned, and the generic kernel at ``--hidden 16``: a call as
-   the host sees it (the kernel lines' ``ms``), and the kernel's device
-   time alone; then the masked inverse's gradient (the kernel's forward,
-   the implicit-function VJP) against autograd through the plain inverse
-   at n=1000 and n=25, within 1e-4;
+   and edge cases, the 128 bucket, the JAX tests' shapes, the flow
+   options' shapes and the corners of the generic kernel's plan: the 256
+   bucket, h and K above 32, d=1, an odd h*d, n=999, a ring of weight
+   slots), the generic kernel against the specialised one on the same
+   inputs at (16, 8, 9), then both kernels timed with CUDA events at the
+   main path's shapes, at d=32, 64 and 128, with every column pinned, and
+   the generic kernel at ``--hidden 16``, at (16, 8, 9), at
+   ``pad_dim_multiple=4``'s (12, 8, 9) n=2000 and at the 256 bucket: a
+   call as the host sees it (the kernel lines' ``ms``), and the kernel's
+   device time alone; then the masked inverse's gradient (the kernel's
+   forward, the implicit-function VJP) against autograd through the plain
+   inverse at n=1000 and n=25, within 1e-4;
 4. case1 by the sequential ``NFiSAM`` (6 poses, 2 landmarks, 6 steps)
    at the journal configuration (2000 training samples per clique, K=9,
    hidden 8, lr 0.025, <= 2000 Adam iterations with the w=25/tol=0.04
@@ -1231,6 +1236,20 @@ KERNEL_CASES = [
     ("generic d12 h8 K9", 1000, 12, 8, 9, 1, 3, (4,)),
     ("generic d16 h8 K20", 1000, 16, 8, 20, 1, 2, (6,)),
     ("generic d16 h16 K9 n=25", 25, 16, 16, 9, 1, 4, ()),
+    # the corners of its launch plan (``make_plan``): the 256 bucket
+    # (weights through L2, 4 lane chunks a layer) with a circular dim past
+    # 128, h and K above the 32 lanes (two chunks each), d=1, an odd h*d
+    # (slices off the 16-byte grain), n not a multiple of 8 samples, a
+    # 2-flow stack, and a ring of weight slots
+    ("generic d256 h128 K9 circ", 1000, 256, 128, 9, 1, 6, (200,)),
+    ("generic d8 h40 K40", 1000, 8, 40, 40, 1, 2, (5,)),
+    ("generic d1 h3 K2", 1000, 1, 3, 2, 1, 0, ()),
+    ("generic d7 h5 K3", 1000, 7, 5, 3, 1, 2, (4,)),
+    ("generic d16 h16 K9 n=999", 999, 16, 16, 9, 1, 3, ()),
+    ("generic d16 h16 K9 2 flows", 1000, 16, 16, 9, 2, 5, (9,)),
+    ("generic d64 h48 K9 ring", 500, 64, 48, 9, 1, 3, (10,)),
+    ("generic d12 h8 K8", 1000, 12, 8, 8, 1, 3, (4,)),
+    ("generic d24 h16 K9", 1000, 24, 16, 9, 1, 4, (20,)),
 ]
 # the shapes the timings are taken at: a case1 root clique's posterior
 # draw (n=1000) and a separator-factor draw in simulation (n=2000), d=16,
@@ -1238,8 +1257,11 @@ KERNEL_CASES = [
 # kernel line's; then K=6 (the mode-repair graph's), the d=32 and d=64 dim
 # buckets at n=1000, every column pinned (no dim step: the launch, the
 # loads and the store alone), a nested-sampling batch (n=25), where the
-# launch is the cost, the d=128 bucket, and the generic kernel at
-# ``--hidden 16`` (its line's)
+# launch is the cost, the d=128 bucket, the generic kernel at
+# ``--hidden 16`` (its line's), the generic kernel at the first case's
+# shape and inputs (``FORCED_GENERIC``: what run-time shapes cost beside
+# the specialised kernel), at ``pad_dim_multiple=4``'s (12, 8, 9) n=2000
+# draw, and at the 256 bucket
 TIMED_CASES = [("timed n=1000 sep2", 1000, 16, 8, 9, 1, 2, ()),
                ("timed K6 n=1000 sep2", 1000, 16, 8, 6, 1, 2, ()),
                ("timed n=2000 sep2", 2000, 16, 8, 9, 1, 2, ()),
@@ -1249,8 +1271,23 @@ TIMED_CASES = [("timed n=1000 sep2", 1000, 16, 8, 9, 1, 2, ()),
                ("timed ns n=25 sep4", 25, 16, 8, 9, 1, 4, ()),
                ("timed d128 n=1000 sep2", 1000, 128, 64, 9, 1, 2, ()),
                ("timed generic d16 h16 n=1000 sep2", 1000, 16, 16, 9, 1, 2,
-                ())]
+                ()),
+               ("timed generic d16 h8 n=1000 sep2", 1000, 16, 8, 9, 1, 2, ()),
+               ("timed generic d12 h8 n=2000 sep2", 2000, 12, 8, 9, 1, 2, ()),
+               ("timed generic d256 h128 n=1000 sep2", 1000, 256, 128, 9, 1,
+                2, ())]
 GENERIC_TIMED = "timed generic d16 h16 n=1000 sep2"
+# timed cases launched through the generic kernel at a specialised shape
+FORCED_GENERIC = {"timed generic d16 h8 n=1000 sep2"}
+# the generic kernel's instantiations (lanes a sample; the weights staged
+# with d, h, K within the lanes ("one"), staged, or read through L2) and
+# a shape that launches each, for the build report beside every generic
+# shape of the cases
+GENERIC_INSTANCES = {(8, "one"): (7, 5, 3), (16, "one"): (16, 16, 9),
+                     (32, "one"): (16, 8, 20), (8, "staged"): (12, 8, 8),
+                     (16, "staged"): (24, 16, 9), (32, "staged"): (8, 40, 40),
+                     (8, "l2"): (4000, 8, 8), (16, "l2"): (3000, 16, 9),
+                     (32, "l2"): (256, 128, 9)}
 # the gradient of the masked inverse (``MaskedStackInverse``: the kernel's
 # forward, the implicit-function VJP) against autograd through the plain
 # inverse: the main path's shape, a nested-sampling batch and a 2-flow
@@ -1371,6 +1408,35 @@ def compare_case(case, device, seed: int) -> tuple:
     return variant, max_err
 
 
+def check_generic_vs_specialized(device) -> None:
+    """The generic kernel at the specialised kernel's main shape (16, 8,
+    9), n=1000, on the same inputs as the specialised kernel: each within
+    atol and rtol ``KERNEL_TOL`` of the plain version and of the other;
+    fails the run if not."""
+    from nfisam_tpu_torch.flows import (stack_inverse_masked_cuda,
+                                        stack_inverse_masked_plain)
+
+    case = ("generic vs specialised d16 h8 K9", 1000, 16, 8, 9, 1, 2, (6,))
+    cfg, params, z, xp, mask = make_case(case, device, seed=11)
+    with torch.no_grad():
+        got = {v: stack_inverse_masked_cuda(params, z, xp, mask, cfg, v)
+               for v in ("specialized", "generic")}
+        torch.cuda.synchronize()
+        ref = stack_inverse_masked_plain(params, z, xp, mask, cfg)
+    spec, gen = got["specialized"], got["generic"]
+    errs = {"generic - specialized": (gen - spec, spec),
+            "generic - plain": (gen - ref, ref),
+            "specialized - plain": (spec - ref, ref)}
+    worst = {k: float(e.abs().max()) for k, (e, _) in errs.items()}
+    log(f"ar_inverse {case[0]}: max |{'|, |'.join(worst)}| "
+        f"{', '.join(f'{v:.3e}' for v in worst.values())}")
+    for name, (e, base) in errs.items():
+        if bool((e.abs() > KERNEL_TOL + KERNEL_TOL * base.abs()).any()) or \
+                not bool(torch.isfinite(gen).all()):
+            raise SystemExit(f"ar_inverse {case[0]}: {name} beyond atol + "
+                             f"rtol {KERNEL_TOL} ({worst[name]:.3e})")
+
+
 def check_launched_shapes(device) -> None:
     """Every (d, h, K) a path of this run launched a kernel at (the
     wrapper's ``launched_shapes``, cleared after the kernel checks), held
@@ -1420,21 +1486,29 @@ def check_ar_inverse(device) -> list:
         f"kernel's cases, {worst['generic']:.3e} over the generic "
         f"kernel's, within atol {KERNEL_TOL} + rtol {KERNEL_TOL}")
 
+    check_generic_vs_specialized(device)
+
     timed = {}
     for case in TIMED_CASES:
         cfg, params, z, xp, mask = make_case(case, device, seed=7)
+        variant = ("generic" if case[0] in FORCED_GENERIC else
+                   kernel_variant(cfg.dim, cfg.hidden_dim, cfg.num_knots))
         with torch.no_grad():
             def call():
-                return stack_inverse_masked_cuda(params, z, xp, mask, cfg)
+                return stack_inverse_masked_cuda(params, z, xp, mask, cfg,
+                                                 variant)
             ms = time_cuda(call)
             device_ms = time_cuda(call, hold=True)
+            # the plain version takes 0.2-0.6 s a call at d >= 128, where
+            # the kernel checks above have already run it: time it once
+            slow = cfg.dim >= 128
             plain_ms = time_cuda(lambda: stack_inverse_masked_plain(
-                params, z, xp, mask, cfg), warmup=2, repeats=10)
+                params, z, xp, mask, cfg), warmup=0 if slow else 2,
+                repeats=1 if slow else 10)
         nbytes, flops = ar_inverse_work(z.shape[0], cfg, mask.cpu().numpy())
         bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         flops_ms = 1e3 * flops / F32_FLOP_PER_S
-        log(f"ar_inverse {case[0]} "
-            f"({kernel_variant(cfg.dim, cfg.hidden_dim, cfg.num_knots)}): "
+        log(f"ar_inverse {case[0]} ({variant}): "
             f"kernel {ms:.5f} ms a call, {device_ms:.5f} ms on the device; "
             f"plain {plain_ms:.3f} ms; bound {max(bytes_ms, flops_ms):.6f} "
             f"ms ({nbytes} B -> {bytes_ms:.6f} ms, {flops:.3e} FLOP -> "
@@ -1486,22 +1560,25 @@ def check_unif_gradient(device) -> float:
 
 
 def build_report() -> None:
-    """Each specialised AR-inverse instantiation's block shape, registers,
-    local memory, dynamic shared memory and ring slots, as the runtime
-    reads them from the built cubin (ptxas's figures: spills and a stack
-    frame are local memory), failing if any uses local memory; then the
-    generic kernel's (one build for every shape; its shared memory at the
-    generic timed shape), printed."""
+    """Each AR-inverse instantiation's block shape, registers, local
+    memory, dynamic shared memory and weight slots, as the runtime reads
+    them from the built cubin (ptxas's figures: spills and a stack frame
+    are local memory), failing if any uses local memory: the specialised
+    kernel's 28, then the generic kernel's 9 (lanes a sample x weights
+    staged with one chunk, staged, or through L2) at every generic shape
+    of the cases and timings and at ``GENERIC_INSTANCES``, failing if a
+    generic instantiation was not reached."""
     from nfisam_tpu_torch.flows.ar_inverse import (SUPPORTED_DIM_HIDDEN,
                                                    SUPPORTED_KNOTS,
-                                                   ar_inverse_kernel)
+                                                   ar_inverse_kernel,
+                                                   kernel_variant)
 
     def describe(info):
         return (f"{info['threads']} threads ({info['samples']} samples) a "
                 f"block, {info['registers']} registers, "
                 f"{info['local_bytes']} B local (stack and spills), "
                 f"{info['smem_bytes']} B dynamic shared memory, "
-                f"{info['slots']} ring slots")
+                f"{info['slots']} weight slots")
 
     local = []
     for d, h in SUPPORTED_DIM_HIDDEN:
@@ -1510,11 +1587,28 @@ def build_report() -> None:
             log(f"ar_inverse d={d} h={h} K={K}: {describe(info)}")
             if info["local_bytes"]:
                 local.append((d, h, K))
+    shapes = {(d, h, K) for _, _, d, h, K, *_ in KERNEL_CASES + TIMED_CASES
+              if kernel_variant(d, h, K) == "generic"}
+    shapes |= set(GENERIC_INSTANCES.values())
+    seen = set()
+    for d, h, K in sorted(shapes):
+        info = ar_inverse_kernel.info(d, h, K)
+        # the instantiation the C side's ``pick`` launches for this plan
+        one = info["slots"] > 0 and max(d, h, K) <= info["group"]
+        seen.add((info["group"], "l2" if info["staging"] == "l2" else
+                  "one" if one else "staged"))
+        log(f"ar_inverse_generic d={d} h={h} K={K}: {info['group']} lanes "
+            f"a sample, weights {info['staging']}"
+            f"{', one chunk' if one else ''}; {describe(info)}")
+        if info["local_bytes"]:
+            local.append(("generic", d, h, K))
+    if seen != set(GENERIC_INSTANCES):
+        raise SystemExit(f"ar_inverse_generic: instantiations reported "
+                         f"{sorted(seen)}, expected "
+                         f"{sorted(GENERIC_INSTANCES)}")
     if local:
         raise SystemExit(f"ar_inverse instantiations with local memory "
                          f"(stack or spills): {local}")
-    log(f"ar_inverse_generic (any d, h, K; at d=16 h=16 K=9): "
-        f"{describe(ar_inverse_kernel.info(16, 16, 9))}")
 
 
 def profile_solve(device) -> None:
@@ -2994,6 +3088,7 @@ def main() -> int:
     grad_rel = check_unif_gradient(device)
     log(f"unif gradient: worst {grad_rel:.3e} of the largest entry (<= "
         f"{GRAD_RTOL})")
+    elapsed()
     from nfisam_tpu_torch.flows import ar_inverse_kernel
     ar_inverse_kernel.launched_shapes.clear()
 

@@ -13,9 +13,12 @@ fused.  ``kernel_variant(d, h, K)`` names the one a shape goes to:
 - ``"generic"``, ``csrc/ar_inverse_generic.cu``: every other d >= 1,
   h >= 1, K >= 2 at run time (another ``hidden_dim``,
   ``scale_hidden_with_dim=False``, ``pad_dim_multiple``, another
-  ``num_knots``); one warp a sample.
+  ``num_knots``, the 256 dim bucket); a group of 8, 16 or 32 lanes a
+  sample, the weights in shared memory by TMA where they fit, at any
+  alignment (``ARInverseKernel.info`` reports how a shape launches).
 
-A shape goes to exactly one of them.  The wrapper takes nothing but
+A shape goes to exactly one of them (``launch`` names one, for checks
+and timings).  The wrapper takes nothing but
 contiguous float32 CUDA tensors, raises on anything else or on a failed
 build or launch, and never falls back.  The libraries are built with
 ``nvcc`` at first use.
@@ -70,6 +73,12 @@ def kernel_variant(d: int, h: int, K: int) -> str:
     return "generic"
 
 
+def _staging(slots: int, d: int) -> str:
+    """How a kernel with ``slots`` weight slots at dim ``d`` holds the
+    weights: the whole flow in shared memory, a ring, or through L2."""
+    return "flow" if slots == d else ("ring" if slots else "l2")
+
+
 class ARInverseKernel:
     """ctypes handles on the two built kernels, with their launch counts
     (``variant_launches`` by variant, ``launches`` their sum) and the
@@ -114,8 +123,9 @@ class ARInverseKernel:
     def info(self, d: int, h: int, K: int) -> Dict[str, object]:
         """Build facts of the kernel that (d, h, K) goes to, on the current
         card: its variant, registers and local (spill) bytes a thread,
-        dynamic shared memory bytes, threads and samples a block, and
-        weight ring slots (0 for the generic kernel)."""
+        dynamic shared memory bytes, threads and samples a block, weight
+        slots, lanes a sample (``group``) and how the weights are held
+        (``staging``: "flow", "ring" or "l2")."""
         variant = kernel_variant(d, h, K)
         self.load()
         out = (ctypes.c_int * len(INFO_FIELDS))()
@@ -124,7 +134,10 @@ class ARInverseKernel:
         if err != 0:
             raise RuntimeError(f"ar_inverse {variant} kernel: no build facts "
                                f"for d={d}, h={h}, K={K}: cudaError_t {err}")
-        return {"variant": variant, **dict(zip(INFO_FIELDS, out))}
+        facts = dict(zip(INFO_FIELDS, out))
+        return {"variant": variant, **facts,
+                "group": facts["threads"] // facts["samples"],
+                "staging": _staging(facts["slots"], d)}
 
     def _circular_flags(self, cfg: NSFConfig, device) -> torch.Tensor:
         key = (cfg.circular, cfg.dim, str(device))
@@ -138,9 +151,25 @@ class ARInverseKernel:
     def __call__(self, params: dict, z_full: torch.Tensor,
                  x_prefix_full: torch.Tensor, invert_mask: torch.Tensor,
                  cfg: NSFConfig) -> torch.Tensor:
-        """One flow's masked inverse; returns a new (n, dim) tensor."""
+        """One flow's masked inverse through the kernel ``kernel_variant``
+        names; returns a new (n, dim) tensor."""
+        return self.launch(params, z_full, x_prefix_full, invert_mask, cfg,
+                           kernel_variant(cfg.dim, cfg.hidden_dim,
+                                          cfg.num_knots))
+
+    def launch(self, params: dict, z_full: torch.Tensor,
+               x_prefix_full: torch.Tensor, invert_mask: torch.Tensor,
+               cfg: NSFConfig, variant: str) -> torch.Tensor:
+        """One flow's masked inverse through ``variant``: the generic
+        kernel takes every shape, the specialised one its instantiations
+        only.  The solver's paths call the wrapper; this names a variant
+        for the checks and timings that compare the two."""
         d, h, K = cfg.dim, cfg.hidden_dim, cfg.num_knots
-        variant = kernel_variant(d, h, K)
+        if variant not in VARIANTS or (
+                variant == "specialized" and
+                kernel_variant(d, h, K) != "specialized"):
+            raise ValueError(f"ar_inverse kernel: no {variant} kernel at "
+                             f"d={d}, h={h}, K={K}")
         if not z_full.is_cuda:
             raise ValueError("ar_inverse kernel takes CUDA tensors only")
         n = z_full.shape[0]
@@ -193,13 +222,16 @@ ar_inverse_kernel = ARInverseKernel()
 
 
 def stack_inverse_masked_cuda(flow_params: List[dict], z_full, x_prefix_full,
-                              invert_mask, cfg: NSFConfig) -> torch.Tensor:
-    """The stack inverse through the kernel: one launch per flow, last
-    flow first."""
+                              invert_mask, cfg: NSFConfig,
+                              variant: str | None = None) -> torch.Tensor:
+    """The stack inverse through the kernel (``kernel_variant``'s, or
+    ``variant``): one launch per flow, last flow first."""
+    variant = variant or kernel_variant(cfg.dim, cfg.hidden_dim,
+                                        cfg.num_knots)
     x_full = z_full
     for params in reversed(flow_params):
-        x_full = ar_inverse_kernel(params, z_full, x_prefix_full,
-                                   invert_mask, cfg)
+        x_full = ar_inverse_kernel.launch(params, z_full, x_prefix_full,
+                                          invert_mask, cfg, variant)
         z_full = x_full
     return x_full
 

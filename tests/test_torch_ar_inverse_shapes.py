@@ -29,13 +29,18 @@ def _carried(jparams):
 
 
 # (dim, hidden, knots, flows, sep_dim, circular dims): the JAX tests'
-# shapes, the width and bucketing options' shapes, K=20, and the 128
-# bucket with a circular dim and pinned columns
+# shapes, the width and bucketing options' shapes, K=20, the 128 bucket
+# with a circular dim and pinned columns, and the generic kernel's
+# corners (its card cases): d=1, an odd h*d, h and K above its 32 lanes,
+# a ring of weight slots, a 2-flow stack and two staged shapes
 NEW_SHAPES = [(5, 4, 6, 1, 2, ()), (4, 4, 5, 1, 1, ()), (8, 4, 5, 1, 3, ()),
               (2, 8, 8, 2, 0, ()), (5, 8, 8, 2, 1, ()),
               (16, 16, 9, 1, 2, ()), (16, 4, 9, 1, 2, ()),
               (12, 8, 9, 1, 3, (4,)), (16, 8, 20, 1, 2, (6,)),
-              (128, 64, 9, 1, 6, (7, 70))]
+              (128, 64, 9, 1, 6, (7, 70)), (1, 3, 2, 1, 0, ()),
+              (7, 5, 3, 1, 2, (4,)), (8, 40, 40, 1, 2, (5,)),
+              (64, 48, 9, 1, 3, (10,)), (16, 16, 9, 2, 5, (9,)),
+              (12, 8, 8, 1, 3, (4,)), (24, 16, 9, 1, 4, (20,))]
 
 
 @pytest.mark.parametrize("shape", NEW_SHAPES,

@@ -179,6 +179,72 @@ def test_cuda_build_facts_of_every_instantiation(cuda):
     assert generic["variant"] == "generic" and generic["local_bytes"] == 0
 
 
+def test_cuda_build_facts_of_every_generic_instantiation(cuda):
+    """Each of the generic kernel's nine instantiations (and every generic
+    shape of the cases) runs without local memory, in whole warps of at
+    most 256 threads, within one SM's shared memory."""
+    from nfisam_tpu_torch.flows.ar_inverse import kernel_variant
+    shapes = {c[2:5] for c in chip_smoke.KERNEL_CASES + chip_smoke.TIMED_CASES
+              if kernel_variant(*c[2:5]) == "generic"}
+    for d, h, K in sorted(shapes | set(chip_smoke.GENERIC_INSTANCES.values())):
+        info = ar_inverse_kernel.info(d, h, K)
+        assert info["variant"] == "generic" and info["local_bytes"] == 0
+        assert info["threads"] % 32 == 0 and info["threads"] <= 256
+        assert info["group"] in (8, 16, 32)
+        assert info["group"] >= min(32, max(h, K))
+        assert info["smem_bytes"] <= 232448, (d, h, K, info)
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_cuda_generic_takes_every_shape_the_first_port_took(cuda, seed):
+    """The first generic kernel took every (d, h, K) whose four samples of
+    d + 2h + 5K + 2 floats fit a block: each still gets a launch plan
+    that fits (``info`` raises for a shape without one), and shapes out of
+    the range still raise."""
+    rng = np.random.default_rng(seed)
+    shapes = [(14514, 1, 2), (1, 7257, 2), (1, 1, 2904)]
+    while len(shapes) < 300:
+        d, h, K = (int(rng.integers(1, 15000)), int(rng.integers(1, 7300)),
+                   int(rng.integers(2, 3000)))
+        if 16 * (d + 2 * h + 5 * K + 2) <= 232448:
+            shapes.append((d, h, K))
+    for d, h, K in shapes:
+        info = ar_inverse_kernel.info(d, h, K)
+        assert info["smem_bytes"] <= 232448 and info["samples"] >= 1
+    for d, h, K in ((1, 20000, 2), (40000, 8, 9)):
+        with pytest.raises(RuntimeError, match="no build facts"):
+            ar_inverse_kernel.info(d, h, K)
+
+
+def test_cuda_generic_matches_specialized_on_the_same_inputs(cuda):
+    """The generic kernel launched by name at the specialised kernel's
+    main shape agrees with it and with the plain version."""
+    (cfg, params, z, xp, mask), on_card = _case(
+        ("generic vs specialised", 1000, 16, 8, 9, 1, 2, (6,)))
+    ref = stack_inverse_masked_plain(params, z, xp, mask, cfg).numpy()
+    got = {v: stack_inverse_masked_cuda(*on_card[1:], cfg, v).cpu().numpy()
+           for v in ("specialized", "generic")}
+    np.testing.assert_allclose(got["generic"], ref, **TOL)
+    np.testing.assert_allclose(got["generic"], got["specialized"], **TOL)
+
+
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_cuda_generic_takes_weights_at_any_alignment(cuda, shift):
+    """The generic kernel bulk-copies the 16-byte granules each weight
+    array touches, so views at any 4-byte offset copy and agree."""
+    (cfg, p_cpu, z_cpu, xp_cpu, m_cpu), (_, params, z, xp, mask) = _case(
+        ("odd h*d", 300, 7, 5, 3, 1, 2, (4,)))
+    moved = {}
+    for k, (name, t) in enumerate(params[0].items()):
+        buf = torch.empty(t.numel() + 8, device=cuda)
+        off = (shift + k - buf.data_ptr() // 4) % 4
+        moved[name] = buf[off:off + t.numel()].view(t.shape)
+        moved[name].copy_(t)
+    got = ar_inverse_kernel(moved, z, xp, mask, cfg)
+    ref = stack_inverse_masked_plain(p_cpu, z_cpu, xp_cpu, m_cpu, cfg)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), **TOL)
+
+
 def test_cuda_model_draws_through_the_kernel(cuda):
     """A clique model on the card samples through the kernel, one launch
     per flow per draw."""
