@@ -167,7 +167,33 @@ of JAX or of the JAX package, and exits non-zero if any phase fails:
    ``examples/toy_examples/r2_range_incremental.py``'s 4 steps by
    ``NFiSAM`` with mode repair on, seeds 0-2: L1's mean range to X0, X2
    and X3 within 0.5 m of 5.0, 4.0 and 5.0, the repair log printed beside
-   the JAX package's on the CPU.
+   the JAX package's on the CPU;
+25. ``python -m nfisam_tpu_torch.parallel.dryrun multihost``: 2 ranks on
+   this card (gloo) solve a 4-robot graph, each training its chunk of
+   every bucket (300 iterations, 600 training samples, 500 draws, K=6),
+   beside single-rank solves at seeds 3, 4 and 5; gates: disjoint,
+   non-empty chunks, the ranks' moments within 1e-5, the worst
+   translation MMD to the same-seed single rank < 0.05, the worst
+   range-posterior MMD to seed 4 < max(2x seed 5's, 0.12), the kernel
+   launched in every process, the fused pass equal to the walk;
+26. ``python -m nfisam_tpu_torch.parallel.dryrun multichip 4``: 4 ranks
+   on this card solve case1 (2 steps of 3 poses) at the journal
+   configuration on a (2, 2) (clique, data) mesh and the 8 robots
+   (K=6, <= 700 iterations, 768 samples, 512 draws) on a (4, 1) mesh,
+   ``data_parallel_mesh`` and ``sample_mesh`` set, beside one world-1
+   process; gates: case1's joint translation MMD to world 1 < 0.05 on a
+   500-row subsample and the fused pass's rows split 2 ways; a bucket of
+   >= 4 cliques and each robot's range mean and width within 0.5 m of
+   world 1; the ranks' samples equal; the kernel launched in every
+   process; the fused pass equal to the walk.
+
+Phases 25, 26 and 11 (plaza1_ada0.2) run in child processes, started
+after the kernel checks (which are timed alone on the card) and joined
+before step 14's fused-pass checks, where the host has at least
+``PARALLEL_MIN_CORES`` usable cores and the card is in the ``Default``
+compute mode; otherwise phase 11 runs in this process and phases 25-26
+one after another after phase 24.  The host's core counts and the
+compute mode are printed first.
 
 Each solve's kernel launches are counted from 0 just before it and read
 just after; the specialised kernel line's ``launches`` are
@@ -183,8 +209,11 @@ import argparse
 import copy
 import json
 import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -511,6 +540,10 @@ def lawnmower_argv(seed: int, out: str, ckpt: str = None) -> list:
 
 def log(msg: str) -> None:
     print(f"# {msg}", flush=True)
+
+
+def log_elapsed(t_start: float) -> None:
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
 
 # --------------------------------------------------------------------------
@@ -2161,9 +2194,6 @@ def case1_jax_checkpoint_phase(device, name2dim):
     checkpoint store: every clique loads, none trains, and the kernel
     draws the posterior through the JAX package's flows.  Returns the
     solver."""
-    import shutil
-    import tempfile
-
     from nfisam_tpu_torch.flows import ar_inverse_kernel
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2285,7 +2315,6 @@ def solve_lawnmower(device, tmp: str, extra_argv=()) -> dict:
 def lawnmower_phase(device) -> int:
     """``solve_lawnmower`` at full width and its gates.  Returns the first
     run's kernel launches."""
-    import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         r = solve_lawnmower(device, tmp)
@@ -2522,7 +2551,6 @@ def time_sampler_evals(device) -> None:
 
 def reference_nested_phase(device, samples: int = 1000) -> None:
     """Phase 19: ``reference --sampler nested`` on case1 for seeds 1-3."""
-    import tempfile
 
     from nfisam_tpu_torch.samplers import StructuredJointFactor
 
@@ -2603,7 +2631,6 @@ def nuts_smc_phase(device, samples: int = 1000) -> None:
     """Phase 21: ``reference --sampler nuts`` and ``smc`` on case1 (seed
     0), then the closed-form Gaussian graph for all three samplers and
     the ring graph's arc for NS and SMC."""
-    import tempfile
 
     import nfisam_tpu_torch.core as core
     import nfisam_tpu_torch.factors as factors
@@ -2832,7 +2859,6 @@ def options_phase(device, name2dim) -> int:
     kernel launches counted by variant from 0 just before each solve.
     Returns the generic kernel's launches in the command line's seed-1
     solve (the kernel line's)."""
-    import tempfile
 
     from nfisam_tpu_torch.flows import ar_inverse_kernel
 
@@ -3011,7 +3037,6 @@ def r2_odometry_phase(device) -> None:
     """Phase 24: R^2 odometry in the MAP solvers and ``baseline``, then the
     R^2 range example with mode repair on, kernel launches counted from 0
     just before each solve."""
-    import tempfile
 
     from nfisam_tpu_torch.flows import ar_inverse_kernel
 
@@ -3052,20 +3077,148 @@ def r2_odometry_phase(device) -> None:
                          "measurement")
 
 
+# --------------------------------------------------------------------------
+# phases in child processes, side by side with the main process's
+# --------------------------------------------------------------------------
+# a host with at least this many usable cores and the card in the
+# ``Default`` compute mode runs plaza1_ada0.2 and phases 25-26 in child
+# processes beside the main process's phases; else one after another
+PARALLEL_MIN_CORES = 4
+DRYRUN = [sys.executable, "-m", "nfisam_tpu_torch.parallel.dryrun"]
+
+
+def host_readings() -> tuple:
+    """(os.cpu_count(), usable cores, the card's compute mode)."""
+    usable = len(os.sched_getaffinity(0)) if hasattr(
+        os, "sched_getaffinity") else os.cpu_count()
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip().splitlines()
+    return os.cpu_count(), usable, mode[0] if mode else "unknown"
+
+
+def start_child(label: str, argv: list, tmp: str) -> dict:
+    """Start ``argv`` in a child process from the repository root, its
+    output to a file, its gate readings to ``<tmp>/<label>.json`` (the
+    ``--result`` argument appended)."""
+    result = os.path.join(tmp, f"{label.replace(' ', '_')}.json")
+    out = open(os.path.join(tmp, f"{label.replace(' ', '_')}.log"), "w")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    # a session of its own, so ``stop_children`` reaches the processes the
+    # child starts too (the dry runs' ranks)
+    proc = subprocess.Popen(argv + ["--result", result], cwd=HERE, env=env,
+                            stdout=out, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    log(f"{label}: started in a child process (pid {proc.pid})")
+    return {"label": label, "proc": proc, "out": out, "result": result,
+            "t0": time.perf_counter()}
+
+
+def join_child(child: dict) -> dict:
+    """Wait for a child, print its output (each line marked with its
+    label) and return its gate readings; SystemExit if it failed."""
+    rc = child["proc"].wait()
+    child["out"].close()
+    with open(child["out"].name) as fh:
+        for line in fh.read().splitlines():
+            print(f"# [{child['label']}] {line.lstrip('# ')}", flush=True)
+    log(f"{child['label']}: child exited {rc}; joined "
+        f"{time.perf_counter() - child['t0']:.1f} s after its start")
+    if rc != 0 or not os.path.exists(child["result"]):
+        raise SystemExit(f"{child['label']} failed (exit code {rc})")
+    with open(child["result"]) as fh:
+        return json.load(fh)
+
+
+def child_phases(with_plaza_ada: bool) -> list:
+    """(label, argv) of phases 25 and 26 (the dry runs of
+    ``nfisam_tpu_torch.parallel``: 2 ranks chunking buckets, 4 ranks on a
+    (clique, data) mesh, all on this card) and, ``with_plaza_ada``, of
+    plaza1_ada0.2."""
+    phases = [("phase 25 multihost", DRYRUN + ["multihost"]),
+              ("phase 26 multichip 4", DRYRUN + ["multichip", "4"])]
+    if with_plaza_ada:
+        phases.append(("plaza1_ada0.2", [sys.executable, os.path.join(
+            HERE, "chip_smoke.py"), "--child", "plaza_ada"]))
+    return phases
+
+
+def plaza_ada_child(result: str) -> int:
+    """plaza1_ada0.2 as a child process: the phase, the fused pass against
+    the walk on its final state, and its launches and launched shapes to
+    ``result``."""
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+    from nfisam_tpu_torch.utils.cuda_build import build_all_kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_all_kernels()
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    solver = plaza_ada_phase(device)
+    launches = ar_inverse_kernel.launches
+    rel, fused_s, walk_s = fused_vs_per_clique(solver)
+    with open(result, "w") as fh:
+        json.dump({"launches": launches, "fused_vs_walk": rel,
+                   "fused_s": fused_s, "walk_s": walk_s,
+                   "launched_shapes": sorted(
+                       ar_inverse_kernel.launched_shapes),
+                   "wall_s": time.perf_counter() - t0}, fh)
+    return 0
+
+
+def stop_children(children: list) -> None:
+    """Kill every child still running, with the processes it started."""
+    for child in children:
+        if child["proc"].poll() is None:
+            os.killpg(child["proc"].pid, signal.SIGKILL)
+            child["proc"].wait()
+
+
+def report_children(children: list) -> None:
+    """Join the children, print their readings and fail on any gate: the
+    dry runs gate themselves (a launch in every rank included); plaza1_
+    ada0.2's fused pass is held here, and its launched shapes join this
+    process's for ``check_launched_shapes``."""
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+
+    for child in children:
+        r = join_child(child)
+        label = child["label"]
+        if label == "plaza1_ada0.2":
+            log(f"plaza1_ada0.2: fused pass vs per-clique walk on the final "
+                f"state, max |diff| {r['fused_vs_walk']:.3e} of the samples' "
+                f"scale; posterior_s fused {r['fused_s']} s, per-clique "
+                f"{r['walk_s']} s (in turns); {r['launches']} launches; "
+                f"{r['wall_s']:.1f} s in the child")
+            if not r["fused_vs_walk"] <= FUSED_TOL:
+                raise SystemExit("plaza1_ada0.2: the fused posterior pass "
+                                 "disagrees with the per-clique walk")
+            ar_inverse_kernel.launched_shapes.update(
+                tuple(s) for s in r["launched_shapes"])
+        else:
+            launches = r["launches"]
+            log(f"{label}: ar_inverse launches by process {launches}; "
+                f"{r['wall_s']:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also profile one solve with torch.profiler")
+    parser.add_argument("--child", choices=["plaza_ada"],
+                        help="run one phase as a child of the main run")
+    parser.add_argument("--result", help="a child's gate readings (JSON)")
     opts = parser.parse_args()
     t_start = time.perf_counter()
-
-    def elapsed() -> None:
-        log(f"elapsed {time.perf_counter() - t_start:.1f} s")
-
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
               file=sys.stderr)
         return 1
+    if opts.child:
+        return plaza_ada_child(opts.result)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3073,11 +3226,19 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} x{torch.cuda.device_count()}; {smi}; torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
+    cpu_count, usable, compute_mode = host_readings()
+    log(f"os.cpu_count() {cpu_count}")
+    log(f"len(os.sched_getaffinity(0)) {usable}")
+    log(f"compute mode {compute_mode}")
+    side_by_side = usable >= PARALLEL_MIN_CORES and compute_mode == "Default"
+    log(f"plaza1_ada0.2 and phases 25-26: "
+        f"{'side by side, in child processes' if side_by_side else 'one after another'}"
+        f" (needs >= {PARALLEL_MIN_CORES} usable cores and the Default "
+        f"compute mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
 
-    from nfisam_tpu_torch.io import graph_file_parser
     from nfisam_tpu_torch.utils.cuda_build import build_all_kernels
 
     build_s, built = build_all_kernels()
@@ -3088,9 +3249,27 @@ def main() -> int:
     grad_rel = check_unif_gradient(device)
     log(f"unif gradient: worst {grad_rel:.3e} of the largest entry (<= "
         f"{GRAD_RTOL})")
-    elapsed()
+    log_elapsed(t_start)
     from nfisam_tpu_torch.flows import ar_inverse_kernel
     ar_inverse_kernel.launched_shapes.clear()
+    # the kernels were timed above, alone on the card; from here on child
+    # processes may share it
+    child_tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    children = [start_child(label, argv, child_tmp) for label, argv in
+                child_phases(True)] if side_by_side else []
+    try:
+        return run_phases(opts, device, kind, smi, entries, children,
+                          child_tmp, side_by_side, t_start)
+    finally:
+        stop_children(children)
+        shutil.rmtree(child_tmp, ignore_errors=True)
+
+
+def run_phases(opts, device, kind, smi, entries, children, child_tmp,
+               side_by_side, t_start) -> int:
+    """The main path's phases, the children joined, the checks on the
+    final states and the result lines."""
+    from nfisam_tpu_torch.io import graph_file_parser
 
     nodes, _, _ = graph_file_parser(CASE1_FG)
     name2dim = {str(v.name): v.dim for v in nodes}
@@ -3105,39 +3284,46 @@ def main() -> int:
         raise SystemExit("roundtrip residual gate failed")
 
     launches, par_solver = case1_phase(device, True, name2dim)
-    elapsed()
+    log_elapsed(t_start)
     plaza_solver = plaza_phase(device)
-    elapsed()
+    log_elapsed(t_start)
     robot_solvers = robots_phase(device)
-    elapsed()
+    log_elapsed(t_start)
     repair_solvers = repair_phase(device)
-    elapsed()
+    log_elapsed(t_start)
     separator_solvers = separator_repair_phase(device)
-    elapsed()
+    log_elapsed(t_start)
     da_solvers = case1_da_phase(device)
-    elapsed()
-    plaza_ada_solver = plaza_ada_phase(device)
-    elapsed()
+    log_elapsed(t_start)
+    plaza_ada_solver = None if side_by_side else plaza_ada_phase(device)
+    log_elapsed(t_start)
     map_floor_phase(device)
-    elapsed()
+    log_elapsed(t_start)
     manhattan_solver = manhattan_phase(device)
-    elapsed()
+    log_elapsed(t_start)
     eight_node_solver = eight_node_phase(device)
-    elapsed()
+    log_elapsed(t_start)
     restored_solver = case1_jax_checkpoint_phase(device, name2dim)
-    elapsed()
+    log_elapsed(t_start)
     entries[0]["launches"] = lawnmower_phase(device)
-    elapsed()
+    log_elapsed(t_start)
     reference_nested_phase(device)
-    elapsed()
+    log_elapsed(t_start)
     nuts_smc_phase(device)
-    elapsed()
+    log_elapsed(t_start)
     nested_solver, _ = nested_clique_phase(device)
-    elapsed()
+    log_elapsed(t_start)
     entries[1]["launches"] = options_phase(device, name2dim)
-    elapsed()
+    log_elapsed(t_start)
     r2_odometry_phase(device)
-    elapsed()
+    log_elapsed(t_start)
+    if side_by_side:
+        report_children(children)
+    else:
+        for label, argv in child_phases(False):
+            children.append(start_child(label, argv, child_tmp))
+            report_children(children[-1:])
+    log_elapsed(t_start)
 
     finals = [("case1 NFiSAM", seq_solver),
               ("case1 ParallelNFiSAM", par_solver),
@@ -3149,7 +3335,8 @@ def main() -> int:
     finals += separator_solvers
     finals += [(f"case1_da seed {seed}", solver)
                for seed, solver in zip(DA_SEEDS, da_solvers)]
-    finals.append(("plaza1_ada0.2", plaza_ada_solver))
+    if plaza_ada_solver is not None:
+        finals.append(("plaza1_ada0.2", plaza_ada_solver))
     finals.append(("manhattan g8", manhattan_solver))
     finals.append(("eight-node chain", eight_node_solver))
     finals.append(("case1 from the JAX store", restored_solver))

@@ -10,8 +10,9 @@ The JAX package's commands and flags (``nfisam_tpu/cli.py``), with
 ``--device`` in place of ``--platform`` and ``--compile-cache``: solve,
 baseline and reference run on ``cuda`` unless ``--device`` names
 another, and exit non-zero when there is no card.  Any flag may also come
-from ``--config config.json`` (flags win).  Not ported: ``solve --plot``
-(ROADMAP A20), which exits with code 2.
+from ``--config config.json`` (flags win).  ``solve --plot`` draws each
+step to ``step{i}.png`` and needs matplotlib: without it, it exits with
+code 2 before solving.
 """
 from __future__ import annotations
 
@@ -46,11 +47,6 @@ def _merge_config(args, parser):
 def _device(args):
     from .utils.device import resolve_device
     return resolve_device(args.device)
-
-
-def _not_ported(what: str) -> int:
-    print(f"nfisam_tpu_torch: {what}", file=sys.stderr)
-    return 2
 
 
 def _build_solver_args(args):
@@ -96,8 +92,12 @@ def cmd_solve(argv):
     _add_common(parser)
     args = _merge_config(parser.parse_args(argv), parser)
     if args.plot:
-        return _not_ported("--plot needs matplotlib and is not ported "
-                           "(ROADMAP A20)")
+        from .eval.viz import matplotlib_pyplot
+        try:
+            matplotlib_pyplot()
+        except ImportError as e:
+            print(f"nfisam_tpu_torch: solve --plot: {e}", file=sys.stderr)
+            return 2
     device = _device(args)
 
     from .io import graph_file_parser, group_nodes_factors_incrementally
@@ -112,7 +112,8 @@ def cmd_solve(argv):
         SolverCls = NFiSAM
     solver = SolverCls(_build_solver_args(args), device=device)
     os.makedirs(args.out, exist_ok=True)
-    run_dir = run_incrementally(args.out, solver, batches, truth)
+    run_dir = run_incrementally(args.out, solver, batches, truth,
+                                plot_args={} if args.plot else None)
     print(f"run artifacts: {run_dir}")
     return 0
 

@@ -1,3 +1,4 @@
+from .caesar import export_caesar_script, write_caesar_script
 from .fg_io import (factor_graph_to_string, read_factor_graph_from_file,
                     write_factor_graph_to_file)
 from .g2o import G2oToroPoseGraphReader

@@ -9,15 +9,21 @@ order only makes a parent wait on its children, so:
    are bucketed by training signature (padded dim, sample count, and the
    circular pattern under ``NSF_AR_CS``), and each bucket trains in one
    lockstep loop (``fit_flows_batched``), in chunks of at most ``CHUNK``
-   cliques; a lone clique trains with ``fit_flow_raw``.
+   cliques; a lone clique trains with ``fit_flow_raw``;
+3. with a (clique, data) mesh (``NFiSAMArgs.data_parallel_mesh``, see
+   ``parallel/mesh.py``) the fits shard over its ranks: a bucket's
+   cliques over the clique axis, the samples over the data axis;
+4. inside a process group of several ranks and no mesh
+   (``parallel/multihost.py``), a bucket is not cut into ``CHUNK``s: it
+   trains as one, split across the ranks by ``train_chunked``, and
+   ``host_trained_cliques`` records the cliques this rank trained.
 
 A clique whose signature is in the checkpoint store loads instead of
 simulating and training.  The solver's key stream is consumed in the JAX
 package's order: one simulation key per clique of the wave that did not
 load, then one pad key per clique in bucketing order, then the fit keys
-chunk by chunk.  So the port trains the same cliques, in the same
-buckets, as the JAX package.  Multi-host chunking is not ported:
-``host_trained_cliques`` stays empty.
+chunk by chunk (one a clique, in bucket order).  So the port trains the
+same cliques, in the same buckets, as the JAX package.
 
 ``ParallelNFiSAM`` is a drop-in replacement for ``NFiSAM``.
 """
@@ -34,6 +40,7 @@ from ..graph.bayes_tree import CliqueNode
 from ..solver.checkpoint import content_tag
 from ..solver.nfisam import FlowModelAdapter, NFiSAM, NFiSAMArgs
 from ..train.trainer import fit_flow_raw, fit_flows_batched
+from .multihost import host_parallel_enabled, train_chunked
 
 # the largest bucket trained in one loop; bigger buckets train in chunks
 CHUNK = 8
@@ -61,8 +68,9 @@ class ParallelNFiSAM(NFiSAM):
     """NF-iSAM with wavefront-parallel clique training.
 
     ``bucket_log`` holds (padded dim, sample count, bucket size) for every
-    bucket trained; ``host_trained_cliques`` is the JAX package's
-    multi-host record and stays empty here."""
+    bucket trained; ``host_trained_cliques`` the sorted names of the
+    cliques THIS rank trained under bucket chunking across ranks (empty
+    in a single-rank run)."""
 
     def __init__(self, args: NFiSAMArgs = None, device=None):
         super().__init__(args=args, device=device)
@@ -118,25 +126,29 @@ class ParallelNFiSAM(NFiSAM):
                 t0 = self._clock() if timer is not None else 0.0
                 cfg = self._flow_config(
                     aug_dim, list(items[0][3]) + [False] * items[0][4])
-                for i in range(0, len(items), CHUNK):
-                    self._fit_bucket_chunk(items[i:i + CHUNK], cfg, aug_dim,
+                # chunking across ranks splits the whole bucket itself
+                size = len(items) if host_parallel_enabled(self._args) \
+                    else CHUNK
+                for i in range(0, len(items), size):
+                    self._fit_bucket_chunk(items[i:i + size], cfg, aug_dim,
                                            n)
                     if timer is not None:
                         timer.append(self._clock() - t0)
                     if clique_dim_timer is not None:
                         done = self._clock() - t_begin
                         clique_dim_timer.extend([item[0].dim, done]
-                                                for item in items[i:i + CHUNK])
+                                                for item in items[i:i + size])
 
     def _fit_bucket_chunk(self, items, cfg, aug_dim: int, n: int) -> None:
         tc = self._args.train_config()
         scale_circ = self._args.flow_type == "NSF_AR"
+        mesh = self._args.data_parallel_mesh
         if len(items) == 1:
             clique, samples, var_ordering, circ, pad = items[0]
             key = self._next_key()
             params, iter_loss, n_iters, mean, std = fit_flow_raw(
                 key, samples, cfg, tc, circ + [False] * pad,
-                scale_circular=scale_circ)
+                scale_circular=scale_circ, mesh=mesh)
             fitted = [(clique, circ, pad, params, iter_loss, n_iters, mean,
                        std, key)]
         else:
@@ -144,9 +156,18 @@ class ParallelNFiSAM(NFiSAM):
             samples_stack = torch.stack([s for _, s, _, _, _ in items])
             masks = np.stack([np.asarray(c + [False] * pd, dtype=bool)
                               for _, _, _, c, pd in items])
-            p_s, il_s, t_s, m_s, s_s = fit_flows_batched(
-                keys, samples_stack, cfg, tc, masks,
-                scale_circular=scale_circ)
+            if host_parallel_enabled(self._args):
+                (p_s, il_s, t_s, m_s, s_s), trained_idx = train_chunked(
+                    keys, samples_stack, cfg, tc, masks,
+                    scale_circular=scale_circ, mesh=mesh)
+                # sorted names: ``clique.vars`` is a set
+                self.host_trained_cliques.extend(
+                    "".join(sorted(str(v.name) for v in items[i][0].vars))
+                    for i in trained_idx)
+            else:
+                p_s, il_s, t_s, m_s, s_s = fit_flows_batched(
+                    keys, samples_stack, cfg, tc, masks,
+                    scale_circular=scale_circ, mesh=mesh)
             fitted = [(clique, circ, pad,
                        [{k: v[b] for k, v in p.items()} for p in p_s],
                        il_s[b], t_s[b], m_s[b], s_s[b], keys[b])
@@ -158,7 +179,8 @@ class ParallelNFiSAM(NFiSAM):
             model = CliqueFlowModel(
                 cfg, params, mean, std, circ, aug_sep_dim, pad_dims=pad,
                 content_tag=content_tag(key, cfg, (n, aug_dim)))
-            adapter = FlowModelAdapter(model, self._next_key)
+            adapter = FlowModelAdapter(model, self._next_key,
+                                       mesh=self._args.sample_mesh)
             self._record_training_loss(clique, iter_loss, n_iters)
             self._save_clique_model(clique, model)
             self._clique_density_model[clique] = adapter

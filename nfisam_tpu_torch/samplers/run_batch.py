@@ -6,11 +6,12 @@ each step with a global sampler, and write the JAX package's artifact set
 (``config.json``, ``step{i}.summary``, ``step{i}_ordering``,
 ``step{i}.sample``, ``step_timing``, ``step_list`` and, where the graph
 has mixture factors, ``step{i}.hypoweights``) under ``dyn{N}``,
-``nuts{N}`` or ``smc{N}``.  The JAX package also plots each step
-(``step{i}.png``); plots need matplotlib and are not ported (ROADMAP
-A20), so ``plot_args`` raises.  The samplers run on ``device`` (``cuda``
-unless named); ``parallel_config`` is accepted and ignored, as in the JAX
-package.
+``nuts{N}`` or ``smc{N}``, and each step's plot (``step{i}.png``, drawn
+with ``plot_args``).  Plots need matplotlib: without it ``plot_args``
+raises ``ImportError`` before the first step, and a run without
+``plot_args`` leaves the plots out and says so once.  The samplers run on
+``device`` (``cuda`` unless named); ``parallel_config`` is accepted and
+ignored, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 from ..core.variables import Variable
+from ..eval.viz import matplotlib_pyplot, plot_2d_samples
 from ..factors.mixtures import BinaryFactorMixture
 from ..io import graph_file_parser, group_nodes_factors_incrementally
 from ..utils.functions import NumpyEncoder
@@ -44,9 +46,15 @@ def sampler_run_batch(make_sampler: Callable, sample_step: Callable,
     currently observed sub-graph; ``sample_step(sampler, summary)`` runs it
     and returns an ``(n, total_dim)`` array.  Returns the run directory.
     """
-    if plot_args is not None:
-        raise NotImplementedError(
-            "plots need matplotlib and are not ported (ROADMAP A20)")
+    try:
+        matplotlib_pyplot()
+        plots = True
+    except ImportError as e:
+        if plot_args is not None:
+            raise
+        plots = False
+        if verbose:
+            print(f"step plots left out: {e}", flush=True)
     data_dir = os.path.join(case_dir, data_file)
     nodes, truth, factors = graph_file_parser(
         data_file=data_dir, data_format=data_format,
@@ -104,6 +112,15 @@ def sampler_run_batch(make_sampler: Callable, sample_step: Callable,
         with open(f"{prefix}_ordering", "w") as f:
             f.write(" ".join(str(v.name) for v in observed_nodes))
         np.savetxt(fname=f"{prefix}.sample", X=sample_arr)
+        if plots:
+            plot_2d_samples(
+                samples_mapping=cur_sample,
+                truth={v: p for v, p in truth.items()
+                       if v in observed_nodes},
+                truth_factors=[f for f in observed_factors
+                               if set(f.vars).issubset(observed_nodes)],
+                file_name=f"{prefix}.png", title=f"Step {i}",
+                **(plot_args or {}))
         with open(f"{run_dir}/step_timing", "w") as f:
             f.write(" ".join(str(t) for t in step_timer))
         with open(f"{run_dir}/step_list", "w") as f:

@@ -26,6 +26,7 @@ from ..flows.nsf import NSFConfig
 from ..graph.bayes_tree import CliqueNode
 from ..samplers.simulation import compile_schedule
 from ..train.trainer import TrainConfig, fit_flow_raw
+from ..utils.keys import torch_generator
 from .checkpoint import CliqueModelStore, clique_signature, content_tag
 from .solver import (CliqueSeparatorFactor, ConditionalSampler,
                      FactorGraphSolver, SolverArgs)
@@ -34,12 +35,6 @@ from .solver import (CliqueSeparatorFactor, ConditionalSampler,
 # of two at least ``dim_bucket_floor`` (this) large, so a solve hits few
 # flow shapes
 DIM_BUCKET_FLOOR = 16
-# NFiSAMArgs fields the port takes only at the JAX package's default:
-# field -> (default, the ROADMAP item that would lift it).  Multi-host
-# chunking is not ported
-FIXED_ARGS = {
-    "host_parallel": ("auto", "A21"),
-}
 
 
 @dataclass
@@ -64,7 +59,14 @@ class NFiSAMArgs(SolverArgs):
     training_set_frac: float = 1.0
     validation_interval: int = 10
     slower_stop_rate: float = 2.0
-    # multi-host chunking: only "auto" (``FIXED_ARGS``)
+    # a (clique, data) mesh over the ranks of a process group
+    # (``parallel.mesh``): flow fits shard over it, posterior draws over
+    # ``sample_mesh``'s data axis
+    data_parallel_mesh: Optional[object] = None
+    sample_mesh: Optional[object] = None
+    # bucket chunking across the ranks of a process group
+    # (``parallel/multihost.py``): "auto" = on with more than one rank and
+    # no mesh
     host_parallel: object = "auto"
     # clique-dim bucketing: 0 pads every clique up to the next power of
     # two >= ``dim_bucket_floor``; a positive value pads to that multiple
@@ -95,11 +97,18 @@ def effective_hidden_dim(args, aug_dim: int) -> int:
 
 class FlowModelAdapter(ConditionalSampler):
     """A ``CliqueFlowModel`` behind the solver's conditional-sampler
-    protocol; each draw takes the next key of the solver's stream."""
+    protocol; each draw takes the next key of the solver's stream.
 
-    def __init__(self, model: CliqueFlowModel, key_source):
+    With a ``mesh`` of several data ranks, a draw given observations whose
+    rows split evenly over the data axis inverts only this rank's rows and
+    gathers the rest: every rank draws the whole base sample from the key
+    and keeps its rows, and the inverse is row by row, so the gathered
+    draw is the unsharded one."""
+
+    def __init__(self, model: CliqueFlowModel, key_source, mesh=None):
         self.model = model
         self._next_key = key_source
+        self._mesh = mesh
 
     def conditional_sample_given_observation(self, conditional_dim,
                                              obs_samples=None,
@@ -107,8 +116,20 @@ class FlowModelAdapter(ConditionalSampler):
         if obs_samples is None and sample_number is None:
             raise ValueError("need obs_samples or sample_number")
         n = sample_number if sample_number is not None else 0
-        out = self.model.conditional_sample(self._next_key(), n,
-                                            obs_samples=obs_samples)
+        mesh = self._mesh
+        if mesh is not None and obs_samples is not None and \
+                mesh.shape["data"] > 1 and \
+                obs_samples.shape[0] % mesh.shape["data"] == 0:
+            from ..parallel.mesh import all_gather_rows
+            m = self.model
+            gen = torch_generator(self._next_key(), m.device)
+            rows = mesh.rows(obs_samples.shape[0])
+            z = m.base.sample(gen, obs_samples.shape[0], m.device)[rows]
+            out = all_gather_rows(m.conditional_draw(z, obs_samples[rows]),
+                                  mesh.group("data"))
+        else:
+            out = self.model.conditional_sample(self._next_key(), n,
+                                                obs_samples=obs_samples)
         return out[:, :conditional_dim] if conditional_dim else out
 
 
@@ -237,11 +258,6 @@ class NFiSAM(FactorGraphSolver):
 
     def __init__(self, args: NFiSAMArgs = None, device=None):
         args = args or NFiSAMArgs()
-        for name, (default, item) in FIXED_ARGS.items():
-            if getattr(args, name) != default:
-                raise NotImplementedError(
-                    f"{name}={getattr(args, name)!r} is not ported (ROADMAP "
-                    f"{item}); the port takes only {default!r}")
         if args.flow_type not in ("NSF_AR", "NSF_AR_CS"):
             raise NotImplementedError(f"Unknown flow type {args.flow_type}")
         super().__init__(args=args, device=device)
@@ -345,7 +361,8 @@ class NFiSAM(FactorGraphSolver):
         t0 = self._clock() if timer is not None else 0.0
         params, iter_loss, n_iters, mean, std = fit_flow_raw(
             key, samples, cfg, self._args.train_config(),
-            padded_circ, scale_circular=(self._args.flow_type == "NSF_AR"))
+            padded_circ, scale_circular=(self._args.flow_type == "NSF_AR"),
+            mesh=self._args.data_parallel_mesh)
         if timer is not None:
             timer.append(self._clock() - t0)
         self._record_training_loss(clique, iter_loss, n_iters)
@@ -354,7 +371,8 @@ class NFiSAM(FactorGraphSolver):
                                 content_tag=content_tag(key, cfg,
                                                         samples.shape))
         self._save_clique_model(clique, model)
-        return FlowModelAdapter(model, self._next_key)
+        return FlowModelAdapter(model, self._next_key,
+                                mesh=self._args.sample_mesh)
 
     # ----------------------------------------------------------- recycling
     def root_clique_density_model_to_leaf(self, old_clique: CliqueNode,

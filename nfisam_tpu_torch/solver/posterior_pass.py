@@ -24,6 +24,14 @@ card), and the frontal columns written back.  Nothing in the pass reads a
 device value on the host.  On the same solver state and key stream it
 gives the per-clique walk's samples bit for bit.
 
+With the solver's ``sample_mesh`` of several data ranks and a sample
+count that splits evenly over them, each rank computes only its
+contiguous block of rows: it draws the whole base sample from the key
+and keeps its rows, the prefix and the kernel are row by row, and the
+blocks are gathered at the end, so every rank's samples are the
+unsharded pass's bit for bit (``LazySamples.shard_rows`` says how many
+rows this rank computed).
+
 The JAX pass also groups runs of one flow signature into one scan,
 pads run lengths and the buffer width to powers of two, caches stacked
 parameters block by block, and prewarms the next padded sizes.  All of
@@ -113,12 +121,18 @@ def fused_sample_posterior(solver, num_samples: int
     src, omask, ovals, imask = (_to_device(a, device)
                                 for a in (src, omask, ovals, imask))
     inverse_fn = _select_inverse_fn(device)
-    buffer = torch.zeros((num_samples, D + 1), dtype=torch.float32,
+    mesh = getattr(solver._args, "sample_mesh", None)
+    rows = slice(None)
+    if mesh is not None and mesh.shape["data"] > 1 and \
+            num_samples % mesh.shape["data"] == 0:
+        rows = mesh.rows(num_samples)
+    n_local = len(range(num_samples)[rows])
+    buffer = torch.zeros((n_local, D + 1), dtype=torch.float32,
                          device=device)
     for i, (model, _, _, first, frontal_dim) in enumerate(specs):
         d = model.dim
         gen = torch_generator(solver._next_key(), device)
-        z = model.base.sample(gen, num_samples, device)
+        z = model.base.sample(gen, num_samples, device)[rows]
         prefix = torch.where(omask[i, :d], ovals[i, :d],
                              buffer.index_select(1, src[i, :d]))
         x = conditional_draw_core(model.flow_params, model.mean, model.std,
@@ -126,18 +140,26 @@ def fused_sample_posterior(solver, num_samples: int
                                   model.cfg, inverse_fn)
         buffer[:, first:first + frontal_dim] = \
             x[:, lead[i]:lead[i] + frontal_dim]
-    return LazySamples(buffer, col_of)
+    if n_local != num_samples:
+        from ..parallel.mesh import all_gather_rows
+        buffer = all_gather_rows(buffer, mesh.group("data"))
+    return LazySamples(buffer, col_of, shard_rows=n_local)
 
 
 class LazySamples(Mapping):
     """Posterior samples as column views of the pass's buffer: variable ->
     (n, dim) tensor on the solver's device.  A view is cut when a consumer
-    asks for it; ``materialize`` copies the buffer to the host once."""
+    asks for it; ``materialize`` copies the buffer to the host once.
+    ``shard_rows`` is the rows this rank computed (all of them unless the
+    pass was sharded over a mesh's data axis)."""
 
-    def __init__(self, buffer: torch.Tensor, col_of: Dict) -> None:
+    def __init__(self, buffer: torch.Tensor, col_of: Dict,
+                 shard_rows: Optional[int] = None) -> None:
         self._buffer = buffer
         self._col_of = col_of
         self._cache: Dict = {}
+        self.shard_rows = buffer.shape[0] if shard_rows is None \
+            else shard_rows
 
     def __getitem__(self, v) -> torch.Tensor:
         out = self._cache.get(v)

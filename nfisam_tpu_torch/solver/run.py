@@ -7,20 +7,26 @@ ordering, split timing, training losses, clique dim timing and, where
 the graph has mixture factors, hypothesis weights; the step, fitting
 and posterior timers of the run so far).  Every timer ends in a
 synchronize on a card, so it measures the device's work; a step's
-samples are stacked on the device and copied to the host once.  The
-JAX package's plots (``plot_args`` and ``hypoweights.png``) need
-matplotlib and are not ported (ROADMAP A20).
+samples are stacked on the device and copied to the host once.  With
+``plot_args`` each step's posterior is drawn to ``step{i}.png``, and a
+run with mixture factors draws its hypothesis weights to
+``hypoweights.png``, as the JAX package does.  Both need matplotlib:
+``plot_args`` without it raises ``ImportError`` before the first step,
+and a mixture run without it leaves out ``hypoweights.png`` alone and
+says so once.
 """
 from __future__ import annotations
 
 import itertools
 import json
 import os
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..eval.viz import (matplotlib_pyplot, plot_2d_samples,
+                        plot_hypothesis_weights)
 from ..factors.mixtures import BinaryFactorMixture
 from .solver import FactorGraphSolver
 
@@ -31,12 +37,12 @@ def run_incrementally(case_dir: str, solver: FactorGraphSolver,
                       verbose: bool = True,
                       profile_steps: Optional[List[int]] = None) -> str:
     """Solve ``nodes_factors_by_step`` one step at a time and write the
-    artifacts; returns the run directory.  ``truth`` served the JAX
-    package's plots only.  ``profile_steps``: step indices traced by
+    artifacts; returns the run directory.  ``truth`` (variable -> true
+    value) is drawn on the ``plot_args`` plots, whose other options go to
+    ``plot_2d_samples``.  ``profile_steps``: step indices traced by
     ``torch.profiler`` into ``<run_dir>/trace_step{i}.json``."""
     if plot_args is not None:
-        raise NotImplementedError(
-            "plots need matplotlib and are not ported (ROADMAP A20)")
+        matplotlib_pyplot()
     run_count = 1
     while os.path.exists(f"{case_dir}/run{run_count}"):
         run_count += 1
@@ -51,7 +57,8 @@ def run_incrementally(case_dir: str, solver: FactorGraphSolver,
     step_list: List[int] = []
     posterior_sampling_timer: List[float] = []
     fitting_timer: List[float] = []
-    mixtures: List[BinaryFactorMixture] = []
+    # mixture factor -> [(step, its posterior weights)]
+    mixtures: Dict[BinaryFactorMixture, list] = {}
 
     for i in range(num_batches):
         step_nodes, step_factors = nodes_factors_by_step[i]
@@ -60,7 +67,7 @@ def run_incrementally(case_dir: str, solver: FactorGraphSolver,
         for factor in step_factors:
             solver.add_factor(factor)
             if isinstance(factor, BinaryFactorMixture):
-                mixtures.append(factor)
+                mixtures[factor] = []
 
         step_list.append(i)
         prefix = f"{run_dir}/step{i}"
@@ -109,18 +116,55 @@ def run_incrementally(case_dir: str, solver: FactorGraphSolver,
             with open(f"{run_dir}/{fname}", "w") as f:
                 f.write(" ".join(str(t) for t in data))
 
+        host, col = {}, 0
+        for v in ordering:
+            host[v] = X[:, col:col + v.dim]
+            col += v.dim
+        if plot_args is not None:
+            physical = set(solver.physical_vars)
+            plot_2d_samples(
+                samples_mapping=host, equal_axis=True,
+                truth=None if truth is None else {
+                    v: p for v, p in truth.items() if v in physical},
+                truth_factors=[f for f in solver.physical_factors
+                               if set(f.vars).issubset(physical)],
+                title=f"Step {i}", file_name=f"{prefix}.png", **plot_args)
+
         if mixtures:
-            host, col = {}, 0
-            for v in ordering:
-                host[v] = X[:, col:col + v.dim]
-                col += v.dim
             with open(f"{prefix}.hypoweights", "w") as hf:
-                for factor in mixtures:
+                for factor, history in mixtures.items():
+                    weights = factor.posterior_weights(host)
                     hf.write(" ".join(str(v.name) for v in factor.vars) +
-                             " : " + ",".join(
-                                 str(w) for w in
-                                 factor.posterior_weights(host)) + "\n")
+                             " : " + ",".join(str(w) for w in weights) +
+                             "\n")
+                    history.append((i, weights))
+
+    if mixtures:
+        _plot_hypothesis_weights(mixtures, f"{run_dir}/hypoweights.png",
+                                 verbose)
     return run_dir
+
+
+def _plot_hypothesis_weights(mixtures, file_name: str,
+                             verbose: bool) -> None:
+    """The mixture factors' weights by step (``plot_hypothesis_weights``),
+    under the JAX package's labels; left out, with one line saying so,
+    where matplotlib is missing."""
+    step_weights: Dict[int, Dict] = {}
+    for factor, history in mixtures.items():
+        label = "->".join([str(factor.vars[0].name),
+                           "|".join(str(v.name) for v in factor.vars[1:])])
+        for step, w in history:
+            step_weights.setdefault(step, {})[label] = w
+    if not any(step_weights.values()):
+        return
+    try:
+        matplotlib_pyplot()
+    except ImportError as e:
+        if verbose:
+            print(f"{os.path.basename(file_name)} left out: {e}", flush=True)
+        return
+    plot_hypothesis_weights(step_weights, file_name=file_name)
 
 
 def nfisam_empirical_study(knots, iters, training_samples, learning_rates,

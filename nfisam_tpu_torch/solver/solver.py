@@ -20,7 +20,7 @@ from __future__ import annotations
 import json
 import time
 from collections.abc import Mapping
-from dataclasses import asdict, dataclass
+from dataclasses import dataclass, fields
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -47,6 +47,9 @@ REPAIR_SNAPSHOT_ROWS = 256
 MODE_REPAIR_SIGMA = 4.0
 MODE_REPAIR_MAX_PER_STEP = 3
 MODE_REPAIR_COOLDOWN = 10
+# argument fields holding run-time objects (a solver's meshes), kept out of
+# the arguments' JSON as the JAX package keeps them
+RUNTIME_FIELDS = ("data_parallel_mesh", "sample_mesh")
 
 
 @dataclass
@@ -73,7 +76,8 @@ class SolverArgs:
         """The arguments as JSON under the JAX package's keys: settings
         that are constants here (``constants``, and mode repair's) join
         the fields, at their values."""
-        d = asdict(self)
+        d = {f.name: getattr(self, f.name) for f in fields(self)
+             if f.name not in RUNTIME_FIELDS}
         d.update(store_clique_samples=False,
                  mode_repair_sigma=MODE_REPAIR_SIGMA,
                  mode_repair_max_per_step=MODE_REPAIR_MAX_PER_STEP,
@@ -144,6 +148,10 @@ class FactorGraphSolver:
     @property
     def physical_vars(self) -> List[Variable]:
         return self._physical_graph.vars
+
+    @property
+    def physical_factors(self) -> List[Factor]:
+        return self._physical_graph.factors
 
     @property
     def working_vars(self) -> List[Variable]:

@@ -17,11 +17,19 @@ to stop at iteration ``slower_stop_rate * (t + 1)``, whose update is
 skipped.  The losses stay on the device; the host reads them only at those
 checks.  ``fit_flows_batched`` trains a stack of same-signature cliques
 in one loop, as the JAX package's ``vmap`` of the fit does.
+
+With a (clique, data) ``mesh`` of several ranks (``parallel/mesh.py``),
+as the JAX package's sharded fits: ``fit_flow_raw`` splits the samples
+over every rank of the mesh, ``fit_flows_batched`` the cliques over the
+clique axis and the samples over the data axis.  A rank's loss is its
+rows' NLL sum over the global row count and the gradient and loss are
+summed over the ranks sharing the fit before Adam, so each rank steps as
+the full batch would, and every rank ends with every clique's results.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -68,6 +76,15 @@ def _flatten(flow_params: List[dict]):
     return flat, unravel
 
 
+@dataclass(frozen=True)
+class RowShard:
+    """This rank's rows of a fit shared by several ranks: the loss on them
+    is scaled by ``scale`` (local rows over global rows) and ``reduce``
+    sums a tensor over the ranks sharing the fit."""
+    scale: float
+    reduce: Callable[[torch.Tensor], torch.Tensor]
+
+
 def plateau_window(tc: TrainConfig) -> int:
     """The plateau window, clamped so tiny ``max_iters`` never reach past
     the loss record."""
@@ -82,11 +99,13 @@ def slower_stop_iteration(tc: TrainConfig, t: int) -> int:
 
 
 def train_flow(flow_params: List[dict], data: torch.Tensor, cfg: NSFConfig,
-               tc: TrainConfig, test_data: torch.Tensor | None = None):
+               tc: TrainConfig, test_data: torch.Tensor | None = None,
+               shard: Optional[RowShard] = None):
     """Adam on the full batch ``data`` (normalized samples) from
     ``flow_params``, with the plateau stop, or the validation stop on
-    ``test_data`` when it is given.  Returns (params, iter_loss
-    (max_iters,), n_iters)."""
+    ``test_data`` when it is given; with ``shard``, ``data`` is this
+    rank's part of the batch.  Returns (params, iter_loss (max_iters,),
+    n_iters)."""
     base = BaseDistribution(cfg.circular_mask)
     flat, unravel = _flatten(flow_params)
     flat.requires_grad_(True)
@@ -122,6 +141,10 @@ def train_flow(flow_params: List[dict], data: torch.Tensor, cfg: NSFConfig,
             break
         loss = negative_log_likelihood(unravel(flat), data, cfg, base)
         (grad,) = torch.autograd.grad(loss, flat)
+        if shard is not None:
+            both = shard.reduce(torch.cat([grad, loss.detach()[None]]) *
+                                shard.scale)
+            grad, loss = both[:-1], both[-1]
         with torch.no_grad():
             step = t + 1
             mu.mul_(ADAM_B1).add_(grad, alpha=1.0 - ADAM_B1)
@@ -163,25 +186,58 @@ def _init_and_normalize(key, samples_raw: torch.Tensor, cfg: NSFConfig,
     return params, xn[:n_train], test, mean, std
 
 
+def _row_shard(n: int, mesh, axis) -> tuple:
+    """(this rank's rows, ``RowShard``) of ``n`` rows split over ``axis``
+    of ``mesh`` (None: every rank); all rows and no shard where the axis
+    has one rank."""
+    from ..parallel.mesh import all_reduce_sum
+    parts = mesh.parts(axis)
+    if parts == 1:
+        return slice(None), None
+    rows = mesh.rows(n, axis)
+    group = mesh.group(axis)
+    return rows, RowShard((rows.stop - rows.start) / n,
+                          lambda t: all_reduce_sum(t, group))
+
+
 def fit_flow_raw(key, samples_raw: torch.Tensor, cfg: NSFConfig,
                  tc: TrainConfig, circular_dim_list,
-                 scale_circular: bool = True):
+                 scale_circular: bool = True, mesh=None):
     """Fit a clique flow from raw (unnormalized) samples: init from the
     key, normalize, train.  Returns (params, iter_loss, n_iters, mean,
-    std)."""
+    std).
+
+    With a ``mesh`` of several ranks the samples are cut to a multiple of
+    the ranks (kept whole, in every rank, where there are fewer samples
+    than ranks) and the training rows split over every rank, as the JAX
+    package shards a lone clique's fit over all its devices."""
+    shard_all = mesh is not None and mesh.size > 1
+    if shard_all:
+        keep = (samples_raw.shape[0] // mesh.size) * mesh.size
+        if keep == 0:
+            shard_all = False
+        else:
+            samples_raw = samples_raw[:keep]
     params, train, test, mean, std = _init_and_normalize(
         key, samples_raw, cfg, circular_dim_list, scale_circular, tc)
-    params, iter_loss, n_iters = train_flow(params, train, cfg, tc, test)
+    shard = None
+    if shard_all:
+        rows, shard = _row_shard(train.shape[0], mesh, None)
+        train = train[rows]
+    params, iter_loss, n_iters = train_flow(params, train, cfg, tc, test,
+                                            shard)
     return params, iter_loss, n_iters, mean, std
 
 
 def train_flows_batched(flow_params: List[dict], data: torch.Tensor,
                         cfg: NSFConfig, tc: TrainConfig,
-                        test_data: torch.Tensor | None = None):
+                        test_data: torch.Tensor | None = None,
+                        shard: Optional[RowShard] = None):
     """``train_flow`` for B independent members in lockstep:
     ``flow_params`` carry a leading member axis on every tensor, ``data``
-    is (B, n, dim), ``test_data`` (B, n_test, dim) or None.  Returns
-    (params, iter_loss (B, max_iters), n_iters as a list of B ints).
+    is (B, n, dim) (with ``shard``, this rank's rows of every member),
+    ``test_data`` (B, n_test, dim) or None.  Returns (params, iter_loss
+    (B, max_iters), n_iters as a list of B ints).
 
     The JAX package runs ``vmap`` of its ``while_loop``; this is that
     loop's semantics on the host: every member checks its stop rule at the
@@ -254,6 +310,10 @@ def train_flows_batched(flow_params: List[dict], data: torch.Tensor,
                 break
             active = torch.as_tensor(running, device=data.device)[:, None]
         grad, loss = grad_and_loss(flat, data)
+        if shard is not None:
+            both = shard.reduce(torch.cat([grad, loss[:, None]], 1) *
+                                shard.scale)
+            grad, loss = both[:, :-1], both[:, -1]
         with torch.no_grad():
             step = t + 1
             mu_new = mu.mul(ADAM_B1).add(grad, alpha=1.0 - ADAM_B1)
@@ -280,7 +340,7 @@ def train_flows_batched(flow_params: List[dict], data: torch.Tensor,
 
 def fit_flows_batched(keys, samples_stack: torch.Tensor, cfg: NSFConfig,
                       tc: TrainConfig, circ_masks,
-                      scale_circular: bool = True):
+                      scale_circular: bool = True, mesh=None):
     """Train B same-signature clique flows in lockstep (the JAX package's
     ``fit_flows_batched``).
 
@@ -294,19 +354,69 @@ def fit_flows_batched(keys, samples_stack: torch.Tensor, cfg: NSFConfig,
     The JAX package pads B to a power of two and caches one compiled
     program per (config, n, B); both exist to bound compilation.  PyTorch
     runs eagerly and compiles nothing per shape, so there is neither here.
+
+    With a ``mesh`` of several ranks: the sample axis is cut to a multiple
+    of the data axis (kept whole where it is shorter), B padded to a
+    multiple of the clique axis by repeating the last clique, each clique
+    index trains its block of cliques on its data rows, and the blocks are
+    gathered over the clique axis (the padding dropped).
     """
     keys = np.asarray(keys)
     masks = np.asarray(circ_masks, dtype=bool)
+    B = samples_stack.shape[0]
+    sharded = mesh is not None and mesh.size > 1
+    shard, cliques, split_rows = None, slice(None), False
+    if sharded:
+        n = samples_stack.shape[1]
+        keep_n = (n // mesh.shape["data"]) * mesh.shape["data"]
+        split_rows = keep_n > 0
+        if split_rows and keep_n != n:
+            samples_stack = samples_stack[:, :keep_n]
+        pad_b = (-B) % mesh.shape["clique"]
+        if pad_b:
+            samples_stack = torch.cat([samples_stack, samples_stack[-1:].expand(
+                (pad_b,) + tuple(samples_stack.shape[1:]))])
+            keys = np.concatenate([keys, np.repeat(keys[-1:], pad_b, 0)])
+            masks = np.concatenate([masks, np.repeat(masks[-1:], pad_b, 0)])
+        cliques = mesh.rows(B + pad_b, "clique")
     starts = [_init_and_normalize(keys[b], samples_stack[b], cfg, masks[b],
                                   scale_circular, tc)
-              for b in range(samples_stack.shape[0])]
+              for b in range(samples_stack.shape[0])[cliques]]
     params0 = [{k: torch.stack([s[0][f][k] for s in starts])
                 for k in PARAM_NAMES} for f in range(cfg.num_flows)]
     data = torch.stack([s[1] for s in starts])
+    if split_rows:
+        rows, shard = _row_shard(data.shape[1], mesh, "data")
+        data = data[:, rows]
     test = None if starts[0][2] is None else \
         torch.stack([s[2] for s in starts])
     params, iter_loss, n_iters = train_flows_batched(params0, data, cfg, tc,
-                                                     test)
-    return (params, iter_loss, n_iters,
-            torch.stack([s[3] for s in starts]),
-            torch.stack([s[4] for s in starts]))
+                                                     test, shard)
+    out = (params, iter_loss, n_iters,
+           torch.stack([s[3] for s in starts]),
+           torch.stack([s[4] for s in starts]))
+    if sharded and mesh.shape["clique"] > 1:
+        out = gather_fits(out, mesh.group("clique"), B)
+    return out
+
+
+def gather_fits(out, group, B: int):
+    """``fit_flows_batched``'s outputs of every rank of ``group``, each a
+    block of the cliques, gathered on the host (parameter stacks are
+    kilobytes) in rank order; the first ``B`` cliques are kept."""
+    from ..parallel.mesh import all_gather_objects
+    if group is None:
+        return out
+    params, iter_loss, n_iters, mean, std = out
+    device = iter_loss.device
+    host = ([{k: v.cpu() for k, v in p.items()} for p in params],
+            iter_loss.cpu(), list(n_iters), mean.cpu(), std.cpu())
+    parts = all_gather_objects(host, group)
+
+    def cat(i):
+        return torch.cat([part[i] for part in parts])[:B].to(device)
+
+    return ([{k: torch.cat([part[0][f][k] for part in parts])[:B].to(device)
+              for k in PARAM_NAMES} for f in range(len(params))],
+            cat(1), [t for part in parts for t in part[2]][:B], cat(3),
+            cat(4))

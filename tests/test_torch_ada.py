@@ -12,7 +12,14 @@
   clique's simulation schedule (op kinds, factors by text, drawn
   variables, flow column ordering, true observations), every step's
   trees and trained cliques must agree exactly; the port's samples are
-  finite and shaped.  Exact comparisons: no tolerance."""
+  finite and shaped.  Exact comparisons: no tolerance.
+
+Run as a script, ``JAX_PLATFORMS=cpu python tests/test_torch_ada.py``,
+it solves plaza1_ada0.2's first 5 steps with the JAX package's
+``ParallelNFiSAM`` at ``chip_smoke.PLAZA_ADA_ARGS`` (mode repair on) on
+the CPU and prints the max posterior-mean translation error after each
+step: the reference for how deep the card's prefix must be to hold its
+15 m gate."""
 import os
 import sys
 
@@ -177,3 +184,30 @@ def test_solve_matches_jax_structure(runs, which):
         for x in step["samples"].values():
             assert x.shape[0] == SMALL["posterior_sample_num"]
             assert np.isfinite(x).all()
+
+
+if __name__ == "__main__":
+    # the JAX package's ParallelNFiSAM on plaza1_ada0.2's first
+    # chip_smoke.PLAZA_ADA_STEPS steps at the card's configuration
+    # (PLAZA_ADA_ARGS, mode repair on), on the CPU: the max posterior-mean
+    # translation error after each step, the reference for the depth at
+    # which the card's 15 m gate can hold
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    nodes, truth, factors = j_parse(chip_smoke.PLAZA_ADA_FG, "fg")
+    truth = {str(v.name): np.asarray(t) for v, t in truth.items()}
+    solver = JParallel(JNFiSAMArgs(**chip_smoke.PLAZA_ADA_ARGS))
+    for i, (ns, fs) in enumerate(j_group(nodes, factors, incremental_step=5)
+                                 [:chip_smoke.PLAZA_ADA_STEPS]):
+        for n in ns:
+            solver.add_node(n)
+        for f in fs:
+            solver.add_factor(f)
+        solver.update_physical_and_working_graphs()
+        samples = solver.incremental_inference()
+        worst, rmse = chip_smoke.translation_errors(
+            {str(v.name): np.asarray(x)
+             for v, x in samples.materialize().items()}, truth)
+        print(f"JAX on CPU, plaza1_ada0.2 after step {i + 1}: max "
+              f"posterior-mean translation error {worst:.3f} m, RMSE "
+              f"{rmse:.3f} m (gate {chip_smoke.PLAZA_GATE_M} m)", flush=True)

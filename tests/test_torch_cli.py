@@ -2,12 +2,11 @@
 
 ``run_incrementally`` on case1_da (ambiguous data association) at a tiny
 configuration writes the JAX package's artifact set: the same file names
-(but ``hypoweights.png``, a plot the port leaves out, ROADMAP A20), the
-same elimination orderings, hypothesis-weight lines naming the same
+(``hypoweights.png`` included), the same elimination orderings, hypothesis-weight lines naming the same
 factors, and a ``parameters`` JSON with the same keys.  ``python -m
 nfisam_tpu_torch`` runs ``solve``, ``mmd`` prints the JAX CLI's JSON to
 1e-6 on the same files, ``baseline`` prints the JAX CLI's MAP NLL to
-1e-4, ``--plot`` exits 2 (``reference`` has its own tests in
+1e-4, ``--plot`` without matplotlib exits 2 (``reference`` has its own tests in
 ``test_torch_reference_cli.py``), and ``solve`` without
 ``--device`` exits non-zero on a host without a card.
 
@@ -72,8 +71,8 @@ def runs(tmp_path_factory):
 def test_run_writes_the_jax_artifact_set(runs):
     j_dir, t_dir = runs
     assert os.path.basename(t_dir) == "run1"
-    theirs = set(os.listdir(j_dir)) - {"hypoweights.png"}
-    assert set(os.listdir(t_dir)) == theirs
+    assert set(os.listdir(t_dir)) == set(os.listdir(j_dir))
+    assert "hypoweights.png" in os.listdir(t_dir)
     with open(os.path.join(j_dir, "parameters")) as f:
         j_params = json.load(f)
     with open(os.path.join(t_dir, "parameters")) as f:
@@ -181,8 +180,12 @@ def test_baseline_prints_the_jax_map_nll(tmp_path, capsys):
 @pytest.mark.parametrize("argv", [["solve", "--fg", "x.fg", "--plot",
                                    "--device", "cpu"],
                                   ["solve", "--fg", "x.fg", "--plot"]])
-def test_unported_commands_exit_2(argv):
+def test_unported_commands_exit_2(argv, monkeypatch, capsys):
+    """``solve --plot`` where matplotlib is missing (as on the card's
+    machine) exits 2 before solving, naming matplotlib."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
     assert cli.main(argv) == 2
+    assert "matplotlib" in capsys.readouterr().err
 
 
 def test_solve_without_a_device_fails_on_a_cpu_only_host(tmp_path):

@@ -516,6 +516,81 @@ def test_cuda_one_ns_iteration(cuda):
                                **TOL)
 
 
+# ------------------------------------------------- two gloo ranks on one card
+def _ranks(name, tmp):
+    """Case ``name`` of ``torch_rank_cases`` in 2 rank processes sharing
+    the card (gloo through the host, a (1, 2) mesh)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_rank_cases
+    return torch_rank_cases, torch_rank_cases.run_ranks(name, 2, tmp,
+                                                        "cuda")
+
+
+def test_two_ranks_train_chunked_is_bit_exact(cuda, tmp_path):
+    """``train_chunked`` on 2 ranks of the card: each rank's chunk trains
+    at the stack's width, so the gathered stacks equal
+    ``fit_flows_batched`` on the whole stack bit for bit (a batched fit
+    on a card depends on the loop's width, not on the other members)."""
+    from nfisam_tpu_torch.train import fit_flows_batched
+    cases, ranks = _ranks("chunked", tmp_path)
+    cfg, tc, stack = cases.inputs("chunked", cuda)
+    for B in (3, 4, 5):
+        ref = fit_flows_batched(cases.keys(B), stack[:B], cfg, tc,
+                                np.zeros((B, 4), bool))
+        for rank in ranks:
+            p, il, t, m, s = rank[B][:5]
+            assert t == ref[2]
+            for mine, theirs in zip(p, ref[0]):
+                for k in theirs:
+                    assert torch.equal(mine[k], theirs[k].cpu()), (B, k)
+            for a, b in ((il, ref[1]), (m, ref[3]), (s, ref[4])):
+                assert torch.equal(a, b.cpu())
+
+
+def test_two_ranks_sharded_step_equals_world_one(cuda, tmp_path):
+    """One sharded train step of 2 ranks (32 of 64 rows each, gradients
+    summed over gloo) equals the world-1 step on the card within 1e-6."""
+    from nfisam_tpu_torch.parallel import make_mesh
+    cases, ranks = _ranks("step", tmp_path)
+    (params, loss1), _ = cases.step_run(make_mesh(), cuda)
+    for rank in ranks:
+        (p, l1), _ = rank["first"], rank["last"]
+        np.testing.assert_allclose(l1.numpy(), loss1.cpu().numpy(),
+                                   atol=1e-6, rtol=1e-6)
+        for mine, ref in zip(p, params):
+            for k in ref:
+                np.testing.assert_allclose(mine[k].numpy(),
+                                           ref[k].cpu().numpy(), atol=1e-6,
+                                           rtol=0)
+
+
+def test_two_ranks_sharded_sampler_is_exact(cuda, tmp_path):
+    """The sharded conditional sampler through the kernel on 2 ranks
+    equals the world-1 draw bit for bit."""
+    from nfisam_tpu_torch.parallel import (build_sharded_conditional_sampler,
+                                           make_mesh)
+    cases, ranks = _ranks("sampler", tmp_path)
+    cfg, xp, z = cases.inputs("sampler", cuda)
+    launches = ar_inverse_kernel.launches
+    ref = build_sharded_conditional_sampler(cfg, make_mesh(), 2)(
+        cases.sampler_params(cfg, cuda), xp, z).cpu()
+    assert ar_inverse_kernel.launches > launches
+    for rank in ranks:
+        assert torch.equal(rank["out"], ref)
+
+
+def test_two_ranks_sharded_fused_pass_is_bit_exact(cuda, tmp_path):
+    """The fused pass of 2 ranks with ``sample_mesh`` (256 of 512 rows
+    each, gathered) equals the world-1 solve's on the card bit for bit."""
+    cases, ranks = _ranks("fused", tmp_path)
+    ref, rows = cases.r2_graph_solve(cuda)
+    assert rows == 512
+    for rank in ranks:
+        assert rank["shard_rows"] == 256
+        for name, x in ref.items():
+            assert torch.equal(rank["samples"][name], x), name
+
+
 def _diagnose_map_repeatability(reps: int = 50) -> None:
     """The C1 diagnosis (module docstring)."""
     import time

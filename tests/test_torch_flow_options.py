@@ -34,7 +34,6 @@ from nfisam_tpu_torch.flows.ar_inverse import (SUPPORTED_DIM_HIDDEN,  # noqa: E4
                                                SUPPORTED_KNOTS,
                                                kernel_variant)
 from nfisam_tpu_torch.solver import NFiSAM, NFiSAMArgs, effective_hidden_dim  # noqa: E402
-from nfisam_tpu_torch.solver.nfisam import FIXED_ARGS  # noqa: E402
 from nfisam_tpu_torch.train import (TrainConfig, fit_flow_raw,  # noqa: E402
                                     fit_flows_batched, train_flow,
                                     train_flows_batched)
@@ -168,7 +167,8 @@ def test_args_pass_the_validation_fields_through():
     tc = args.train_config()
     assert (tc.training_set_frac, tc.validation_interval,
             tc.slower_stop_rate) == (0.9, 5, 3.0)
-    assert FIXED_ARGS == {"host_parallel": ("auto", "A21")}
+    assert args.host_parallel == "auto"
+    assert args.data_parallel_mesh is None and args.sample_mesh is None
 
 
 # -------------------------------------------- bucketing and the kernel

@@ -13,8 +13,8 @@ and without a card, ``reference`` exits 1.
 
 ``nested_run_batch``, ``nuts_run_batch`` and ``smc_run_batch`` write the
 JAX package's run directories (``dyn1``, ``nuts1``, ``smc1``) and file
-names, but the per-step ``.png`` plots (ROADMAP A20); their summaries hold
-the JAX package's keys.  ``plot_args`` raises.
+names, the per-step ``.png`` plots included; their summaries hold the JAX
+package's keys, and ``plot_args`` reach the plots.
 
 Run as a script, this file prints the JAX CLI's figures behind the card's
 gates for ``reference --sampler nested`` on case1, seeds 1-3: the MMD of
@@ -127,7 +127,8 @@ def test_batch_runs_write_the_jax_artifact_set(sampler, tmp_path,
     assert os.path.basename(ours) == os.path.basename(theirs) == \
         f"{prefix}1"
     names = _tree(ours)
-    assert names == [n for n in _tree(theirs) if not n.endswith(".png")]
+    assert names == _tree(theirs)
+    assert any(n.endswith(".png") for n in names)
     for n in names:
         a, b = os.path.join(ours, n), os.path.join(theirs, n)
         if n.endswith((".summary", ".json")):
@@ -138,9 +139,12 @@ def test_batch_runs_write_the_jax_artifact_set(sampler, tmp_path,
         elif n.endswith("_ordering") or n == "step_list":
             with open(a) as f, open(b) as g:
                 assert f.read() == g.read()
-    with pytest.raises(NotImplementedError):
-        fn(case_dir=str(dirs[0]), data_file="graph.fg", data_format="fg",
-           verbose=False, device="cpu", plot_args={}, **kw)
+    # ``plot_args`` reach the step plots
+    again = fn(case_dir=str(dirs[0]), data_file="graph.fg",
+               data_format="fg", verbose=False, device="cpu",
+               plot_args={"equal_axis": True}, **kw)
+    assert [n for n in _tree(again) if n.endswith(".png")] == \
+        [n for n in names if n.endswith(".png")]
 
 
 def test_chip_smoke_sampler_helpers_on_the_cpu(tmp_path):

@@ -10,6 +10,7 @@ with the JAX package on the CPU at the full bench.py configuration with
 ``chip_smoke.py`` on those posteriors: the reference point for the
 port's gate on the card."""
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -239,15 +240,32 @@ def test_solver_without_device_raises_on_a_cpu_only_host():
 
 
 @pytest.mark.parametrize("bad", [dict(elimination_method="minimum_degree"),
-                                 dict(host_parallel=True),
+                                 dict(elimination_method="metis"),
                                  dict(elimination_method="colamd"),
                                  dict(flow_type="RealNVP")])
 def test_unported_options_raise(bad):
-    """Options the port does not take raise; multi-host chunking
-    (``host_parallel``, ROADMAP A21) is the one ``NFiSAMArgs`` field left
-    at its JAX default (``FIXED_ARGS``)."""
+    """Options neither package takes raise (every ``NFiSAMArgs`` field of
+    the JAX package is taken)."""
     with pytest.raises(NotImplementedError):
         NFiSAM(NFiSAMArgs(**{**SMALL, **bad}), device="cpu")
+
+
+@pytest.mark.parametrize("opts", [dict(host_parallel=True),
+                                  dict(host_parallel="off"),
+                                  dict(data_parallel_mesh="mesh"),
+                                  dict(sample_mesh="mesh")])
+def test_multi_rank_options_are_taken(opts):
+    """``host_parallel`` and the two meshes are ``NFiSAMArgs`` fields as
+    in the JAX package, and the meshes stay out of the arguments' JSON
+    (``parallel/`` runs them; ``test_torch_mesh.py``)."""
+    if "mesh" in str(opts):
+        from nfisam_tpu_torch.parallel import make_mesh
+        opts = {k: make_mesh() for k in opts}
+    args = NFiSAMArgs(**{**SMALL, **opts})
+    NFiSAM(args, device="cpu")
+    keys = json.loads(args.json_str())
+    assert "data_parallel_mesh" not in keys and "sample_mesh" not in keys
+    assert keys["host_parallel"] == args.host_parallel
 
 
 @pytest.mark.parametrize("opts", [dict(pad_dim_multiple=8),
