@@ -185,23 +185,33 @@ of JAX or of the JAX package, and exits non-zero if any phase fails:
    500-row subsample and the fused pass's rows split 2 ways; a bucket of
    >= 4 cliques and each robot's range mean and width within 0.5 m of
    world 1; the ranks' samples equal; the kernel launched in every
-   process; the fused pass equal to the walk.
+   process; the fused pass equal to the walk;
+27. the headline Manhattan stream's first ``MANHATTAN_G16_STEPS`` steps
+   (``nfisam_tpu_torch.scripts.manhattan_scale_run`` at the JAX
+   package's headline flags: the g16 random walk, pose_first, the
+   runner's configuration, the incremental MAP solved each step); per-step
+   wall, surgery, fit, posterior and floor times, launches and cliques by
+   dim bucket; gates: the runner's accuracy gate, the anchored RMSE <= 2x
+   the JAX package's worst over seeds 0-2 on the CPU at the same prefix,
+   finite samples, the fused pass equal to the walk, and the specialised
+   kernel launched at (32, 16, 9) (the 32 bucket's flow).
 
-Phases 25, 26 and 11 (plaza1_ada0.2) run in child processes, started
+Phases 25, 26, 27 and 11 (plaza1_ada0.2) run in child processes, started
 after the kernel checks (which are timed alone on the card) and joined
 before step 14's fused-pass checks, where the host has at least
 ``PARALLEL_MIN_CORES`` usable cores and the card is in the ``Default``
-compute mode; otherwise phase 11 runs in this process and phases 25-26
+compute mode; otherwise phase 11 runs in this process and phases 25-27
 one after another after phase 24.  The host's core counts and the
-compute mode are printed first.
+compute mode are printed first.  The children's launched shapes join
+this process's for the final check.
 
 Each solve's kernel launches are counted from 0 just before it and read
 just after; the specialised kernel line's ``launches`` are
-lawnmower_4x4's (18), the generic kernel line's phase 23's seed-1 solve
-through the command line; the phase-22 case1 solve's are printed and
-must be > 0.  The output ends with one ``{"kernels": [...]}`` JSON line
-(both kernels), the card's name and power limit, and ``{"ok": true,
-"device": {...}}``.
+lawnmower_4x4's (18) and phase 27's, the generic kernel line's phase
+23's seed-1 solve through the command line; the phase-22 case1 solve's
+are printed and must be > 0.  The output ends with one ``{"kernels":
+[...]}`` JSON line (both kernels), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -218,6 +228,11 @@ import time
 
 import numpy as np
 import torch
+
+from nfisam_tpu_torch.scripts.manhattan_scale_run import (
+    ANCHORED_FACTOR, RMSE_BOUND_M, floor_from_truth, host_samples,
+    manhattan_gate, parse_args, point_errors, run_incremental,
+    solve_manhattan)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CASE1_FG = os.path.join(HERE, "data", "case1_factor_graph.fg")
@@ -374,25 +389,43 @@ MAP_NLL_RTOL = 1e-5
 # float64 2.15 m), so it would loosen the bound
 JAX_PREFIX_FLOOR_MAX = {"plaza1": 0.9797327337812113,
                         "plaza1_ada0.2": 1.006755522254178}
-# the Manhattan-scale runner's smoke (scripts/manhattan_scale_run.py --grid
-# 8 --landmarks 6: 64 poses, 6 landmarks, 114 factors, 8 ADA) at its
-# configuration (:197-202: ParallelNFiSAM, ccolamd, one pose a step, 2000
-# training samples, <= 500 iterations, K=9, h=8, lr 0.01, 1000 draws,
-# seed 0, mode repair on), with the warm-started incremental MAP solved
-# every step.  Cut to MANHATTAN_STEPS: at step 11 both packages raise (the
+# the Manhattan-scale runner (nfisam_tpu_torch/scripts/manhattan_scale_run.py,
+# the JAX package's scripts/manhattan_scale_run.py) at its configuration
+# (:197-202: ParallelNFiSAM, one pose a step, 2000 training samples, <= 500
+# iterations, K=9, h=8, lr 0.01, 1000 draws, seed 0, mode repair on), with
+# the warm-started incremental MAP solved every step, and its accuracy gate
+# (:433-436: raw translation RMSE <= 40 m, the posterior anchored in the
+# incremental MAP's gauge <= 2x that MAP's raw RMSE).  Its smoke: the g8
+# graph (--grid 8 --landmarks 6: 64 poses, 6 landmarks, 114 factors, 8 ADA)
+# under ccolamd, cut to MANHATTAN_STEPS: at step 11 both packages raise (the
 # simulation of the leaf clique {L3 | X11} has no prior to start from;
 # ROADMAP §C)
 MANHATTAN_G8_FG = os.path.join(HERE, "data",
                                "manhattan_scale_g8_l6_ada0.2_s60.fg")
-MANHATTAN_ARGS = dict(posterior_sample_num=1000, local_sample_num=2000,
-                      flow_iterations=500, num_knots=9, learning_rate=0.01,
-                      hidden_dim=8, elimination_method="ccolamd", seed=0)
 MANHATTAN_STEPS = 11
-# the runner's accuracy gate (:433-436): raw translation RMSE <= 40 m and
-# the posterior anchored in the incremental MAP's gauge <= 2x that MAP's
-# raw RMSE
-MANHATTAN_RAW_GATE_M = 40.0
-MANHATTAN_ANCHORED_FACTOR = 2.0
+MANHATTAN_G8_ARGV = ["--grid", "8", "--landmarks", "6", "--limit-steps",
+                     str(MANHATTAN_STEPS)]
+# the runner's headline stream (its docstring's first command, the JAX
+# script's :33-35: data/manhattan_scale_g16_l6_ada0.2_rp1_rw.fg, 1101 poses,
+# 6 landmarks, 2202 factors, 236 ADA; pose_first), in a child process, cut
+# to its first MANHATTAN_G16_STEPS of 1101 steps.  pose_first trains one
+# clique a step; on the card the 32 bucket (h=16: the specialised kernel at
+# MANHATTAN_G16_SHAPE) trains from step 16 on (PERF.md §5), so 48 steps
+# train 31 there.  Fewer steps would gate the seed, not the port: at 40
+# the JAX package's own anchored posterior exceeds 2x its incremental MAP
+# for two of seeds 0-2 (7.948 and 4.979 against 4.840 m), at 48 for none.
+# Gates: the runner's accuracy gate, and parity: anchored <=
+# MANHATTAN_PARITY_FACTOR x the worst of the JAX package's runner loop at
+# the same prefix over seeds 0-2 on the CPU (``JAX_PLATFORMS=cpu python
+# tests/test_torch_manhattan_scale.py``)
+MANHATTAN_G16_STEPS = 48
+MANHATTAN_G16_ARGV = ["--grid", "16", "--landmarks", "6", "--range-prob",
+                      "1.0", "--sensing", "0", "--traj", "random_walk",
+                      "--waypoints", "1100", "--ordering", "pose_first",
+                      "--limit-steps", str(MANHATTAN_G16_STEPS)]
+MANHATTAN_G16_SHAPE = (32, 16, 9)
+JAX_MANHATTAN_G16_WORST = 3.5875400165335942
+MANHATTAN_PARITY_FACTOR = 2.0
 # the eight-node R^2 chain (examples/toy_examples/r2_relative_eight_nodes.py)
 # at that example's configuration, seeds 0-2; its gate is 2x the JAX
 # package's worst over the same seeds on the CPU (``JAX_PLATFORMS=cpu
@@ -549,61 +582,6 @@ def log_elapsed(t_start: float) -> None:
 # --------------------------------------------------------------------------
 # the solves and their gates (device-agnostic, so the tests can drive them)
 # --------------------------------------------------------------------------
-def host_samples(samples) -> dict:
-    """Posterior samples as host arrays by variable name (the fused pass's
-    buffer in one copy)."""
-    if hasattr(samples, "materialize"):
-        samples = samples.materialize()
-    return {str(v.name): x.cpu().numpy() if torch.is_tensor(x)
-            else np.asarray(x) for v, x in samples.items()}
-
-
-def run_incremental(solver, batches, device, after_step=None):
-    """Drive an incremental solve through the solver's entry points.
-    Returns (per-step timings {"s", "surgery_s", "fit_s", "posterior_s",
-    "iters", "trained", "launches", "buckets"}, per-step host samples
-    {name: (n, dim)}).  On a card every phase ends in a synchronize, so its
-    time is the device's too; ``launches`` counts the AR-inverse kernel's,
-    ``buckets`` lists the step's (padded dim, n, cliques) training buckets
-    of a solver that logs them.  ``after_step(new nodes, new factors)``
-    runs after each step's posterior, and the dict it returns joins the
-    step's timings."""
-    from nfisam_tpu_torch.flows import ar_inverse_kernel
-
-    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" \
-        else (lambda: None)
-    steps, per_step = [], []
-    for ns, fs in batches:
-        sync()
-        launches = ar_inverse_kernel.launches
-        n_buckets = len(getattr(solver, "bucket_log", []))
-        t0 = time.perf_counter()
-        for n in ns:
-            solver.add_node(n)
-        for f in fs:
-            solver.add_factor(f)
-        solver.update_physical_and_working_graphs()
-        t1 = time.perf_counter()
-        solver.fit_tree_density_models()
-        sync()
-        t2 = time.perf_counter()
-        samples = solver._samples = solver.sample_posterior()
-        sync()
-        t3 = time.perf_counter()
-        steps.append({"s": t3 - t0, "surgery_s": t1 - t0, "fit_s": t2 - t1,
-                      "posterior_s": t3 - t2,
-                      "iters": [int(t) for _, t in
-                                solver._temp_training_loss.values()],
-                      "trained": len(solver._temp_training_loss),
-                      "launches": ar_inverse_kernel.launches - launches,
-                      "buckets": list(getattr(solver, "bucket_log",
-                                              [])[n_buckets:])})
-        if after_step is not None:
-            steps[-1].update(after_step(ns, fs))
-        per_step.append(host_samples(samples))
-    return steps, per_step
-
-
 def solve_case1(seed: int, device, parallel: bool = False, **overrides):
     """One incremental case1 solve, by ``NFiSAM`` or, with ``parallel``,
     by ``ParallelNFiSAM`` (the JAX package's bench.py solver).  Returns
@@ -945,35 +923,6 @@ def translation_errors(samples, truth):
     return worst, rmse
 
 
-def point_errors(est, truth) -> tuple:
-    """(RMSE, max) of a point estimate's translation error (m) over the
-    variables with a ground truth; both keyed alike."""
-    errs = np.array([np.linalg.norm(np.asarray(est[v])[:2] -
-                                    np.asarray(truth[v])[:2])
-                     for v in est if v in truth])
-    return float(np.sqrt(np.mean(errs ** 2))), float(errs.max())
-
-
-def floor_from_truth(m, truth) -> dict:
-    """The truth-initialised MAP floor (``scripts/plaza_family_run.py``
-    ``map_floor``; ``manhattan_scale_run.py:366-376``): ``m``, an
-    ``IncrementalGaussNewtonMAP`` of either package holding the graph,
-    starts from the ground-truth column and counts as solved once, so the
-    solve is warm (at most 15 LM iterations).  Returns {"rmse", "max",
-    "iters", "nll", "s", "est"} with ``est`` keyed like ``truth``."""
-    x = np.zeros(m.dim, np.float32)
-    for v in m.vars:
-        x[m.offset[v]:m.offset[v] + v.dim] = np.asarray(truth[v])[:v.dim]
-    m._x = x
-    m._solved_once = True
-    seconds = []
-    m.solve(timer=seconds)
-    est = m.results()
-    rmse, worst = point_errors(est, truth)
-    return dict(rmse=rmse, max=worst, iters=m.last_iterations,
-                nll=m.last_nll, s=seconds[0], est=est)
-
-
 def laplace_from_truth(m, truth) -> dict:
     """``GaussNewtonMAP`` of either package (``m``) from the ground-truth
     column (``scripts/manhattan_plaza_run.py``'s floor, started where the
@@ -1032,88 +981,6 @@ def plaza_floor_gate(label: str, worst: float, floor: dict) -> None:
         f"{floor['s']:.3f} s")
     if not worst <= bound:
         raise SystemExit(f"{label} divergence gate failed")
-
-
-def scale_metrics(samples, truth, inc_est, floor_est) -> dict:
-    """``scripts/manhattan_scale_run.py``'s accuracy read-out (:251-376),
-    all keyed by name: raw posterior-mean translation RMSE, after a
-    similarity (Kabsch-Umeyama) alignment to the truth, and anchored (the
-    posterior means moved by the rigid transform that best maps them onto
-    the incremental MAP, truth unseen); the incremental MAP's and the
-    truth-initialised floor's RMSE; the share of variables whose truth lies
-    inside the 95% ellipse of its samples."""
-    from nfisam_tpu_torch.eval import kabsch_umeyama, rigid_gauge_transform
-
-    names = [n for n in samples if n in truth]
-    means = {n: np.asarray(samples[n]).mean(0) for n in names}
-    A = np.stack([np.asarray(truth[n])[:2] for n in names])
-    B = np.stack([means[n][:2] for n in names])
-    R, c, t = kabsch_umeyama(A, B)
-    aligned = (c * (R @ B.T)).T + t
-    mah = []
-    for n in names:
-        s = np.asarray(samples[n])[:, :2]
-        d = np.asarray(truth[n])[:2] - s.mean(0)
-        mah.append(float(d @ np.linalg.solve(
-            np.cov(s.T) + 1e-9 * np.eye(2), d)))
-    common = [n for n in names if n in inc_est]
-    Rg, tg = rigid_gauge_transform(
-        np.stack([np.asarray(inc_est[n])[:2] for n in common]),
-        np.stack([means[n][:2] for n in common]))
-    anchored = (Rg @ B.T).T + tg
-    return dict(
-        raw=float(np.sqrt(((A - B) ** 2).sum(1).mean())),
-        aligned=float(np.sqrt(((A - aligned) ** 2).sum(1).mean())),
-        anchored=float(np.sqrt(((A - anchored) ** 2).sum(1).mean())),
-        incremental_map=point_errors(inc_est, truth)[0],
-        floor=point_errors(floor_est, truth)[0],
-        coverage=float(np.mean(np.asarray(mah) <= 5.99)))
-
-
-def run_manhattan(solver, floor, batches, device, truth) -> tuple:
-    """The Manhattan-scale runner's loop (:210-229) on solvers of either
-    package: each step the flow solve, then the incremental MAP updated
-    and warm-solved (its time takes in the ring scoring of new
-    landmarks); at the end the read-out of ``scale_metrics`` and the
-    truth-initialised floor on the same MAP object.  ``truth`` is keyed by
-    the package's variables.  Returns (per-step timings with "floor_s",
-    "floor_iters", "floor_nll", the metrics, last step's host samples)."""
-    def step_floor(ns, fs):
-        t0 = time.perf_counter()
-        floor.update(ns, fs)
-        floor.solve()
-        return {"floor_s": time.perf_counter() - t0,
-                "floor_iters": floor.last_iterations,
-                "floor_nll": floor.last_nll}
-
-    steps, per_step = run_incremental(solver, batches, device, step_floor)
-    by_name = {str(v.name): t for v, t in truth.items()}
-    inc_est = {str(v.name): np.array(x) for v, x in floor.results().items()}
-    floor_est = floor_from_truth(floor, truth)["est"]
-    metrics = scale_metrics(per_step[-1], by_name, inc_est,
-                            {str(v.name): x for v, x in floor_est.items()})
-    return steps, metrics, per_step[-1]
-
-
-def solve_manhattan(device, steps: int = MANHATTAN_STEPS, **overrides):
-    """The Manhattan-scale smoke by the port (``run_manhattan``) at the
-    runner's configuration.  Returns (per-step timings, metrics, last
-    step's host samples, solver)."""
-    from nfisam_tpu_torch.io import (graph_file_parser,
-                                     group_nodes_factors_incrementally)
-    from nfisam_tpu_torch.parallel import ParallelNFiSAM
-    from nfisam_tpu_torch.solver import (IncrementalGaussNewtonMAP,
-                                         NFiSAMArgs)
-
-    nodes, truth, factors = graph_file_parser(MANHATTAN_G8_FG)
-    batches = group_nodes_factors_incrementally(
-        nodes, factors, incremental_step=1)[:steps]
-    solver = ParallelNFiSAM(NFiSAMArgs(**{**MANHATTAN_ARGS, **overrides}),
-                            device=device)
-    timings, metrics, samples = run_manhattan(
-        solver, IncrementalGaussNewtonMAP(device=device), batches, device,
-        truth)
-    return timings, metrics, samples, solver
 
 
 def _ref_block(mat, order, name2dim, names):
@@ -2062,14 +1929,15 @@ def log_manhattan_steps(steps) -> None:
 
 
 def manhattan_phase(device):
-    """The Manhattan-scale smoke (``solve_manhattan``), its kernel launches
-    counted; the runner's read-out and its accuracy gate.  Returns the
-    solver."""
+    """The Manhattan-scale smoke (the runner's ``solve_manhattan`` at
+    ``MANHATTAN_G8_ARGV``), its kernel launches counted; the runner's
+    read-out and its accuracy gate.  Returns the solver."""
     from nfisam_tpu_torch.flows import ar_inverse_kernel
 
     ar_inverse_kernel.reset_launches()
     t0 = time.perf_counter()
-    steps, m, samples, solver = solve_manhattan(device)
+    _, steps, m, samples, solver = solve_manhattan(
+        parse_args(MANHATTAN_G8_ARGV + ["--device", str(device)]))
     total = time.perf_counter() - t0
     launches = ar_inverse_kernel.launches
     log(f"manhattan g8 first {MANHATTAN_STEPS} steps, ParallelNFiSAM "
@@ -2078,11 +1946,7 @@ def manhattan_phase(device):
         f"{len(solver.physical_bayes_tree.clique_nodes)} cliques; repair "
         f"events {len(solver.mode_repair_log)} {solver.mode_repair_log}")
     log_manhattan_steps(steps)
-    log(f"manhattan g8: raw translation RMSE {m['raw']:.4f} m (<= "
-        f"{MANHATTAN_RAW_GATE_M}), Kabsch-aligned {m['aligned']:.4f} m, "
-        f"anchored {m['anchored']:.4f} m (<= {MANHATTAN_ANCHORED_FACTOR} x "
-        f"incremental MAP {m['incremental_map']:.4f} m), truth-initialised "
-        f"floor {m['floor']:.4f} m, 95% coverage {m['coverage']:.4f}")
+    log(f"manhattan g8: {scale_line(m)}")
     check_finite(samples, "manhattan g8")
     if launches == 0:
         raise SystemExit("the manhattan solve never launched the "
@@ -2092,10 +1956,15 @@ def manhattan_phase(device):
     return solver
 
 
-def manhattan_gate(m: dict) -> bool:
-    """The runner's accuracy gate on ``scale_metrics``' read-out."""
-    return bool(m["raw"] <= MANHATTAN_RAW_GATE_M and m["anchored"] <=
-                MANHATTAN_ANCHORED_FACTOR * m["incremental_map"])
+def scale_line(m: dict) -> str:
+    """The runner's read-out ``m`` as the Manhattan phases print it."""
+    return (f"raw translation RMSE {m['trans_rmse']:.4f} m (<= "
+            f"{RMSE_BOUND_M}), Kabsch-aligned {m['aligned_trans_rmse']:.4f} "
+            f"m, anchored {m['anchored_trans_rmse']:.4f} m (<= "
+            f"{ANCHORED_FACTOR} x incremental MAP "
+            f"{m['incremental_map_rmse']:.4f} m), truth-initialised floor "
+            f"{m['map_floor_rmse']:.4f} m, 95% coverage "
+            f"{m['coverage_95_frac']:.4f}")
 
 
 # --------------------------------------------------------------------------
@@ -3081,7 +2950,7 @@ def r2_odometry_phase(device) -> None:
 # phases in child processes, side by side with the main process's
 # --------------------------------------------------------------------------
 # a host with at least this many usable cores and the card in the
-# ``Default`` compute mode runs plaza1_ada0.2 and phases 25-26 in child
+# ``Default`` compute mode runs plaza1_ada0.2 and phases 25-27 in child
 # processes beside the main process's phases; else one after another
 PARALLEL_MIN_CORES = 4
 DRYRUN = [sys.executable, "-m", "nfisam_tpu_torch.parallel.dryrun"]
@@ -3135,13 +3004,14 @@ def join_child(child: dict) -> dict:
 def child_phases(with_plaza_ada: bool) -> list:
     """(label, argv) of phases 25 and 26 (the dry runs of
     ``nfisam_tpu_torch.parallel``: 2 ranks chunking buckets, 4 ranks on a
-    (clique, data) mesh, all on this card) and, ``with_plaza_ada``, of
-    plaza1_ada0.2."""
+    (clique, data) mesh, all on this card), ``with_plaza_ada`` of
+    plaza1_ada0.2, and of the headline Manhattan prefix."""
     phases = [("phase 25 multihost", DRYRUN + ["multihost"]),
               ("phase 26 multichip 4", DRYRUN + ["multichip", "4"])]
+    this = [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--child"]
     if with_plaza_ada:
-        phases.append(("plaza1_ada0.2", [sys.executable, os.path.join(
-            HERE, "chip_smoke.py"), "--child", "plaza_ada"]))
+        phases.append(("plaza1_ada0.2", this + ["plaza_ada"]))
+    phases.append(("manhattan g16 pose_first", this + ["manhattan_g16"]))
     return phases
 
 
@@ -3169,6 +3039,92 @@ def plaza_ada_child(result: str) -> int:
     return 0
 
 
+def manhattan_g16_readings(device, steps: int = MANHATTAN_G16_STEPS,
+                           **overrides) -> dict:
+    """The headline Manhattan prefix (``MANHATTAN_G16_ARGV``, its first
+    ``steps`` steps; ``overrides`` of the runner's solver arguments): the
+    runner's solve with the kernel's launches counted from 0, its per-step
+    lines, and the fused pass against the walk on the final state.
+    Returns the readings ``manhattan_g16_report`` gates (JSON-able): the
+    read-out, per-step timings, launches by kernel, launched shapes,
+    finite samples and the wall."""
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+
+    ar_inverse_kernel.reset_launches()
+    ar_inverse_kernel.launched_shapes.clear()
+    t0 = time.perf_counter()
+    _, steps_t, m, samples, solver = solve_manhattan(parse_args(
+        MANHATTAN_G16_ARGV + ["--limit-steps", str(steps), "--device",
+                              str(device)]), **overrides)
+    wall = time.perf_counter() - t0
+    launches = dict(ar_inverse_kernel.variant_launches)
+    shapes = sorted(ar_inverse_kernel.launched_shapes)
+    log_manhattan_steps(steps_t)
+    rel, fused_s, walk_s = fused_vs_per_clique(solver)
+    return {"metrics": m, "steps": steps_t, "launches": launches,
+            "launched_shapes": shapes, "fused_vs_walk": rel,
+            "fused_s": fused_s, "walk_s": walk_s,
+            "cliques": len(solver.physical_bayes_tree.clique_nodes),
+            "repairs": list(map(str, solver.mode_repair_log)),
+            "finite": all(bool(np.isfinite(x).all())
+                          for x in samples.values()),
+            "wall_s": wall}
+
+
+def manhattan_g16_child(result: str) -> int:
+    """The headline Manhattan prefix as a child process: its readings
+    (``manhattan_g16_readings``) to ``result``."""
+    from nfisam_tpu_torch.utils.cuda_build import build_all_kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_all_kernels()
+    readings = manhattan_g16_readings(torch.device("cuda"))
+    with open(result, "w") as fh:
+        json.dump(readings, fh)
+    return 0
+
+
+def manhattan_g16_report(r: dict) -> None:
+    """The headline prefix's readings from its child, and its gates: the
+    runner's accuracy gate, JAX parity, finite samples, the fused pass
+    equal to the walk, the specialised kernel launched at
+    MANHATTAN_G16_SHAPE."""
+    m, steps = r["metrics"], r["steps"]
+    at32 = sum(1 for st in steps if any(d == 32 for d, _, _ in st["buckets"]))
+    reached = [s for s in r["launched_shapes"] if s[0] == "specialized"
+               and tuple(s[2:]) == MANHATTAN_G16_SHAPE]
+    parity = MANHATTAN_PARITY_FACTOR * JAX_MANHATTAN_G16_WORST
+    walls = [st["s"] for st in steps]
+    log(f"manhattan g16 pose_first first {len(steps)} steps, "
+        f"ParallelNFiSAM + IncrementalGaussNewtonMAP: {r['wall_s']:.3f} s "
+        f"in the child, median step {np.median(walls):.3f} s, floor "
+        f"{sum(st['floor_s'] for st in steps):.3f} s in all; ar_inverse "
+        f"launches by kernel {r['launches']}; {r['cliques']} cliques; "
+        f"steps training at the 32 bucket {at32}; repair events "
+        f"{len(r['repairs'])} {r['repairs']}")
+    log(f"manhattan g16: {scale_line(m)}; anchored <= "
+        f"{MANHATTAN_PARITY_FACTOR} x the JAX package's worst over seeds "
+        f"0-2 on the CPU {JAX_MANHATTAN_G16_WORST:.4f} = {parity:.4f}")
+    log(f"manhattan g16: fused pass vs per-clique walk on the final state, "
+        f"max |diff| {r['fused_vs_walk']:.3e} of the samples' scale; "
+        f"posterior_s fused {r['fused_s']} s, per-clique {r['walk_s']} s "
+        f"(in turns); launched at {MANHATTAN_G16_SHAPE}: n in "
+        f"{sorted({s[1] for s in reached})}")
+    if not r["finite"]:
+        raise SystemExit("manhattan g16: non-finite samples")
+    if not reached:
+        raise SystemExit(f"manhattan g16 never launched the specialised "
+                         f"kernel at {MANHATTAN_G16_SHAPE}")
+    if not r["fused_vs_walk"] <= FUSED_TOL:
+        raise SystemExit("manhattan g16: the fused posterior pass "
+                         "disagrees with the per-clique walk")
+    if not manhattan_gate(m):
+        raise SystemExit("manhattan g16 accuracy gate failed")
+    if not m["anchored_trans_rmse"] <= parity:
+        raise SystemExit("manhattan g16 JAX-parity gate failed")
+
+
 def stop_children(children: list) -> None:
     """Kill every child still running, with the processes it started."""
     for child in children:
@@ -3177,17 +3133,25 @@ def stop_children(children: list) -> None:
             child["proc"].wait()
 
 
-def report_children(children: list) -> None:
+def report_children(children: list) -> int:
     """Join the children, print their readings and fail on any gate: the
     dry runs gate themselves (a launch in every rank included); plaza1_
-    ada0.2's fused pass is held here, and its launched shapes join this
-    process's for ``check_launched_shapes``."""
+    ada0.2's fused pass and the headline Manhattan prefix's gates are held
+    here, and both children's launched shapes join this process's for
+    ``check_launched_shapes``.  Returns the headline prefix's launches of
+    the specialised kernel (0 if it was not among the children)."""
     from nfisam_tpu_torch.flows import ar_inverse_kernel
 
+    g16_launches = 0
     for child in children:
         r = join_child(child)
         label = child["label"]
-        if label == "plaza1_ada0.2":
+        if label == "manhattan g16 pose_first":
+            manhattan_g16_report(r)
+            g16_launches = r["launches"]["specialized"]
+            ar_inverse_kernel.launched_shapes.update(
+                tuple(s) for s in r["launched_shapes"])
+        elif label == "plaza1_ada0.2":
             log(f"plaza1_ada0.2: fused pass vs per-clique walk on the final "
                 f"state, max |diff| {r['fused_vs_walk']:.3e} of the samples' "
                 f"scale; posterior_s fused {r['fused_s']} s, per-clique "
@@ -3202,13 +3166,14 @@ def report_children(children: list) -> None:
             launches = r["launches"]
             log(f"{label}: ar_inverse launches by process {launches}; "
                 f"{r['wall_s']:.1f} s")
+    return g16_launches
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also profile one solve with torch.profiler")
-    parser.add_argument("--child", choices=["plaza_ada"],
+    parser.add_argument("--child", choices=["plaza_ada", "manhattan_g16"],
                         help="run one phase as a child of the main run")
     parser.add_argument("--result", help="a child's gate readings (JSON)")
     opts = parser.parse_args()
@@ -3218,7 +3183,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     if opts.child:
-        return plaza_ada_child(opts.result)
+        return {"plaza_ada": plaza_ada_child,
+                "manhattan_g16": manhattan_g16_child}[opts.child](opts.result)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3231,7 +3197,7 @@ def main() -> int:
     log(f"len(os.sched_getaffinity(0)) {usable}")
     log(f"compute mode {compute_mode}")
     side_by_side = usable >= PARALLEL_MIN_CORES and compute_mode == "Default"
-    log(f"plaza1_ada0.2 and phases 25-26: "
+    log(f"plaza1_ada0.2 and phases 25-27: "
         f"{'side by side, in child processes' if side_by_side else 'one after another'}"
         f" (needs >= {PARALLEL_MIN_CORES} usable cores and the Default "
         f"compute mode)")
@@ -3318,11 +3284,11 @@ def run_phases(opts, device, kind, smi, entries, children, child_tmp,
     r2_odometry_phase(device)
     log_elapsed(t_start)
     if side_by_side:
-        report_children(children)
+        entries[0]["launches"] += report_children(children)
     else:
         for label, argv in child_phases(False):
             children.append(start_child(label, argv, child_tmp))
-            report_children(children[-1:])
+            entries[0]["launches"] += report_children(children[-1:])
     log_elapsed(t_start)
 
     finals = [("case1 NFiSAM", seq_solver),

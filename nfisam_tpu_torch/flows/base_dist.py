@@ -63,9 +63,16 @@ class BaseDistribution:
         self.circular_mask = np.asarray(circular_mask, dtype=bool)
         self.dim = int(self.circular_mask.shape[0])
         self._any_circular = bool(self.circular_mask.any())
+        self._masks: dict = {}
 
     def _mask(self, device) -> torch.Tensor:
-        return torch.as_tensor(self.circular_mask, device=device)
+        """The circular mask on ``device``, copied there once (a log
+        density replayed from a CUDA graph copies nothing from the
+        host)."""
+        if device not in self._masks:
+            self._masks[device] = torch.as_tensor(self.circular_mask,
+                                                  device=device)
+        return self._masks[device]
 
     def log_prob(self, z: torch.Tensor) -> torch.Tensor:
         if not self._any_circular:

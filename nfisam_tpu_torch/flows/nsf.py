@@ -13,6 +13,7 @@ Parameters of one flow are a dict of tensors: ``W1 (d, h, d)``,
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
@@ -87,10 +88,28 @@ def flow_params_from_numpy(flow_params: List[Dict[str, np.ndarray]],
             for p in flow_params]
 
 
+# The forward pass's constant masks and column orders on a device, built
+# once: a training step replayed from a CUDA graph (train/trainer.py) may
+# copy nothing from the host
+@functools.lru_cache(maxsize=None)
+def _ar_mask_on(d: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(autoregressive_mask(d), device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _rqs_columns_on(circ: Tuple[bool, ...], device: torch.device):
+    """(euclidean columns, circular columns, the order restoring the dims
+    from [euclidean | circular])."""
+    circ = np.asarray(circ, dtype=bool)
+    e, c = np.where(~circ)[0], np.where(circ)[0]
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (e, c, np.argsort(np.concatenate([e, c]))))
+
+
 def conditioner_all_dims(params: dict, x: torch.Tensor,
                          cfg: NSFConfig) -> torch.Tensor:
     """All dims' spline parameters in one batched pass: (n, d) -> (n, d, 3K)."""
-    mask = torch.as_tensor(autoregressive_mask(cfg.dim), device=x.device)
+    mask = _ar_mask_on(cfg.dim, x.device)
     w1 = params["W1"] * mask[:, None, :]
     h1 = torch.tanh(torch.einsum("nj,ihj->nih", x, w1) + params["b1"])
     h2 = torch.tanh(torch.einsum("nih,igh->nig", h1, params["W2"]) +
@@ -123,8 +142,7 @@ def _apply_rqs_mixed(x, W, H, D, cfg: NSFConfig, inverse: bool):
     if circ.all():
         return unconstrained_rqs(x, W, H, D, inverse=inverse,
                                  tail_bound=math.pi, circular=True)
-    e_idx = torch.as_tensor(np.where(~circ)[0], device=x.device)
-    c_idx = torch.as_tensor(np.where(circ)[0], device=x.device)
+    e_idx, c_idx, order = _rqs_columns_on(tuple(circ.tolist()), x.device)
     oe, lde = unconstrained_rqs(
         x[..., e_idx], W[..., e_idx, :], H[..., e_idx, :],
         D[..., e_idx, :K - 1], inverse=inverse, tail_bound=cfg.tail_bound)
@@ -132,8 +150,6 @@ def _apply_rqs_mixed(x, W, H, D, cfg: NSFConfig, inverse: bool):
         x[..., c_idx], W[..., c_idx, :], H[..., c_idx, :], D[..., c_idx, :],
         inverse=inverse, tail_bound=math.pi, circular=True)
     # columns come back as [euclidean | circular]; restore the dim order
-    order = torch.as_tensor(np.argsort(np.concatenate(
-        [np.where(~circ)[0], np.where(circ)[0]])), device=x.device)
     out = torch.cat([oe, oc], dim=-1)[..., order]
     ld = torch.cat([lde, ldc], dim=-1)[..., order]
     return out, ld

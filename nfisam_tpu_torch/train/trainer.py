@@ -18,6 +18,12 @@ skipped.  The losses stay on the device; the host reads them only at those
 checks.  ``fit_flows_batched`` trains a stack of same-signature cliques
 in one loop, as the JAX package's ``vmap`` of the fit does.
 
+On a card, ``train_flow``'s plateau-stopped fit captures the loss and
+its gradient by autograd in a CUDA graph and replays it every iteration
+(``_GraphedLossGrad``): the same kernels in the same order as the eager
+pass, so the same bits, for one launch where the eager pass issues a few
+hundred.  The host still reads the losses only at the plateau checks.
+
 With a (clique, data) ``mesh`` of several ranks (``parallel/mesh.py``),
 as the JAX package's sharded fits: ``fit_flow_raw`` splits the samples
 over every rank of the mesh, ``fit_flows_batched`` the cliques over the
@@ -98,6 +104,35 @@ def slower_stop_iteration(tc: TrainConfig, t: int) -> int:
     return int(np.float32(tc.slower_stop_rate) * np.float32(t + 1))
 
 
+class _GraphedLossGrad:
+    """``train_flow``'s loss and its gradient on a card, captured in a CUDA
+    graph once and replayed for every iteration: the same kernels in the
+    same order as the eager pass, so the same bits, for one launch where
+    the eager pass issues a few hundred.  The Adam update stays eager (a
+    graph of it left the eager bits on the card).  A pass that cannot be
+    captured raises: nothing falls back to the eager loop."""
+
+    def __init__(self, loss_fn: Callable, flat: torch.Tensor):
+        stream = torch.cuda.current_stream(flat.device)
+        side = torch.cuda.Stream(flat.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):    # warm-up, off the fit's state
+            probe = flat.detach().clone().requires_grad_(True)
+            torch.autograd.grad(loss_fn(probe), probe)
+        stream.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            loss = loss_fn(flat)
+            (self.grad,) = torch.autograd.grad(loss, flat)
+        self.loss = loss.detach()
+
+    def __call__(self) -> tuple:
+        """(loss, gradient) at ``flat``'s current value: the graph's
+        buffers, overwritten by the next replay."""
+        self.graph.replay()
+        return self.loss, self.grad
+
+
 def train_flow(flow_params: List[dict], data: torch.Tensor, cfg: NSFConfig,
                tc: TrainConfig, test_data: torch.Tensor | None = None,
                shard: Optional[RowShard] = None):
@@ -115,6 +150,12 @@ def train_flow(flow_params: List[dict], data: torch.Tensor, cfg: NSFConfig,
                             device=data.device)
     w = plateau_window(tc)
     last_val, slow = float("inf"), -1
+    graphed = None
+    if data.is_cuda and test_data is None and shard is None and \
+            tc.max_iters > 0:
+        graphed = _GraphedLossGrad(
+            lambda v: negative_log_likelihood(unravel(v), data, cfg, base),
+            flat)
     t = 0
     while t < tc.max_iters:
         if test_data is not None:
@@ -139,8 +180,11 @@ def train_flow(flow_params: List[dict], data: torch.Tensor, cfg: NSFConfig,
             iter_loss[t] = iter_loss[max(t - 1, 0)]
             t += 1
             break
-        loss = negative_log_likelihood(unravel(flat), data, cfg, base)
-        (grad,) = torch.autograd.grad(loss, flat)
+        if graphed is not None:
+            loss, grad = graphed()
+        else:
+            loss = negative_log_likelihood(unravel(flat), data, cfg, base)
+            (grad,) = torch.autograd.grad(loss, flat)
         if shard is not None:
             both = shard.reduce(torch.cat([grad, loss.detach()[None]]) *
                                 shard.scale)

@@ -304,6 +304,30 @@ def test_cuda_batched_trainer_follows_single_fits(cuda):
         assert float(loss[b, t[b] - 1]) < float(loss[b, 0])
 
 
+def test_cuda_graphed_training_equals_eager(cuda, monkeypatch):
+    """``train_flow`` with its loss and gradient replayed from a CUDA graph
+    gives the eager loop's bits: parameters, loss curve and plateau stop,
+    at the bench's d=16 and at the 32 bucket (h=16)."""
+    from nfisam_tpu_torch.train import TrainConfig, fit_flow_raw, trainer
+
+    tc = TrainConfig(max_iters=300, learning_rate=0.01, average_window=25,
+                     loss_delta_tol=0.04)
+    rng = np.random.default_rng(1)
+    for d, h in ((16, 8), (32, 16)):
+        cfg = NSFConfig(dim=d, num_knots=9, hidden_dim=h)
+        raw = torch.as_tensor((rng.normal(size=(2000, d)) * rng.uniform(
+            0.5, 30, d)).astype(np.float32), device=cuda)
+        key, mask = np.array([3, d], np.uint32), np.zeros(d, bool)
+        graphed = fit_flow_raw(key, raw, cfg, tc, mask)
+        with monkeypatch.context() as mp:
+            mp.setattr(trainer, "_GraphedLossGrad", lambda *a: None)
+            eager = fit_flow_raw(key, raw, cfg, tc, mask)
+        assert graphed[2] == eager[2] < 300
+        assert torch.equal(graphed[1], eager[1])
+        for a, b in zip(graphed[0], eager[0]):
+            assert all(torch.equal(a[k], b[k]) for k in a)
+
+
 def test_cuda_banked_floor_matches_the_cpu(cuda):
     """The banked NLL (rtol 1e-5) and its gradient (1e-4 of the largest
     entry, the CPU parity tests' tolerance) on the card and on the CPU at

@@ -39,6 +39,7 @@ from nfisam_tpu_torch.io import group_nodes_factors_incrementally  # noqa: E402
 from nfisam_tpu_torch.samplers import StructuredJointFactor  # noqa: E402
 from nfisam_tpu_torch.solver import (GaussNewtonMAP,  # noqa: E402
                                      IncrementalGaussNewtonMAP)
+from nfisam_tpu_torch.scripts import manhattan_scale_run as msr  # noqa: E402
 from nfisam_tpu_torch.solver import banked_joint as tb  # noqa: E402
 
 torch.set_num_threads(1)
@@ -379,9 +380,10 @@ def jax_manhattan(steps=chip_smoke.MANHATTAN_STEPS):
     from nfisam_tpu.solver import NFiSAMArgs as JNFiSAMArgs
     nodes, truth, factors = j_parse(chip_smoke.MANHATTAN_G8_FG, "fg")
     batches = j_group(nodes, factors, incremental_step=1)[:steps]
-    solver = JParallel(JNFiSAMArgs(**chip_smoke.MANHATTAN_ARGS))
-    return chip_smoke.run_manhattan(solver, jb.IncrementalGaussNewtonMAP(),
-                                    batches, "cpu", truth), solver
+    solver = JParallel(JNFiSAMArgs(**msr.solver_args(
+        msr.parse_args(chip_smoke.MANHATTAN_G8_ARGV))))
+    return msr.run_manhattan(solver, jb.IncrementalGaussNewtonMAP(), batches,
+                             "cpu", truth, factors), solver
 
 
 if __name__ == "__main__":
@@ -435,13 +437,7 @@ if __name__ == "__main__":
         print(f"  step {i}: wall {st['s']:.2f} s, fit {st['fit_s']:.2f} s, "
               f"floor {st['floor_s']:.3f} s ({st['floor_iters']} LM "
               f"iterations), buckets {st['buckets']}", flush=True)
-    gate = chip_smoke.MANHATTAN_ANCHORED_FACTOR * m["incremental_map"]
     print(f"manhattan g8 first {chip_smoke.MANHATTAN_STEPS} steps (JAX, "
-          f"CPU): raw {m['raw']:.4f} m, aligned {m['aligned']:.4f} m, "
-          f"anchored {m['anchored']:.4f} m, incremental MAP "
-          f"{m['incremental_map']:.4f} m, floor {m['floor']:.4f} m, "
-          f"coverage {m['coverage']:.4f}, repairs {solver.mode_repair_log};"
-          f" gate raw <= {chip_smoke.MANHATTAN_RAW_GATE_M}: "
-          f"{m['raw'] <= chip_smoke.MANHATTAN_RAW_GATE_M}, anchored <= "
-          f"{chip_smoke.MANHATTAN_ANCHORED_FACTOR} x incremental: "
-          f"{m['anchored'] <= gate}")
+          f"CPU): {chip_smoke.scale_line(m)}, repairs "
+          f"{solver.mode_repair_log}; the runner's gate: "
+          f"{msr.manhattan_gate(m)}")

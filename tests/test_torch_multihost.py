@@ -135,8 +135,11 @@ def test_chip_smoke_runs_a_dryrun_as_a_child(tmp_path, capsys):
     assert "# [phase 25 multihost] replication gate" in out
     assert "phase 25 multihost: child exited 0; joined" in out
     assert [label for label, _ in chip_smoke.child_phases(True)] == \
-        ["phase 25 multihost", "phase 26 multichip 4", "plaza1_ada0.2"]
-    assert len(chip_smoke.child_phases(False)) == 2
+        ["phase 25 multihost", "phase 26 multichip 4", "plaza1_ada0.2",
+         "manhattan g16 pose_first"]
+    assert [label for label, _ in chip_smoke.child_phases(False)] == \
+        ["phase 25 multihost", "phase 26 multichip 4",
+         "manhattan g16 pose_first"]
     bad = chip_smoke.start_child("phase 26 multichip 4",
                                  chip_smoke.DRYRUN + ["nosuch"],
                                  str(tmp_path))

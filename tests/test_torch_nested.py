@@ -26,8 +26,10 @@ the CPU, and the mean joint MMD over steps 0-5 (``python
 tests/test_torch_nested.py``, ~2 min); with ``scatter``, the logz of
 static NS on case1 at 300 live points for seeds 100-115 by both packages
 on the CPU, and each package's mean and standard deviation (~10 min);
-with ``scatter-dynamic``, the JAX package's dynamic NS at
-``chip_smoke.dynamic_ns_phase``'s protocol for seeds 11-16 (~2 min)."""
+with ``scatter-dynamic [JAX|port]``, dynamic NS at
+``chip_smoke.dynamic_ns_phase``'s protocol for seeds 11-26 by both
+packages (or the one named) on the CPU (~2 min a seed for the port on
+one thread, ~30 min for all 16)."""
 import os
 import sys
 
@@ -261,12 +263,23 @@ def logz_scatter(seeds=range(100, 116), live: int = 300,
 if __name__ == "__main__" and sys.argv[1:] == ["scatter"]:
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     logz_scatter()
-elif __name__ == "__main__" and sys.argv[1:] == ["scatter-dynamic"]:
-    # the JAX package's dynamic NS at chip_smoke.dynamic_ns_phase's
-    # protocol, seeds 11-16
+elif __name__ == "__main__" and sys.argv[1:2] == ["scatter-dynamic"]:
+    # dynamic NS at chip_smoke.dynamic_ns_phase's protocol, seeds 11-26,
+    # by both packages on the CPU (or by the one named after the mode);
+    # on the card, the same sampler call for the port alone:
+    # python3 -c 'import numpy as np, chip_smoke as c
+    # from nfisam_tpu_torch.samplers import GlobalNestedSampler as G
+    # n, f, _ = c.case1_dims()
+    # for s in range(11, 27):
+    #     d = {}
+    #     G(n, f, device="cuda").sample(key=np.array([0, s], np.uint32),
+    #         live_points=c.DYNAMIC_LIVE, max_iters=c.DYNAMIC_ITERS,
+    #         dynamic=True, res_summary=d)
+    #     print(s, d["logz"])'
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    logz_scatter(range(11, 17), chip_smoke.DYNAMIC_LIVE, ("JAX",),
-                 dynamic=True, max_iters=chip_smoke.DYNAMIC_ITERS)
+    logz_scatter(range(11, 27), chip_smoke.DYNAMIC_LIVE,
+                 tuple(sys.argv[2:]) or ("JAX", "port"), dynamic=True,
+                 max_iters=chip_smoke.DYNAMIC_ITERS)
 elif __name__ == "__main__":
     # the JAX package's nested clique path on case1 (CPU), seed 1
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
