@@ -38,9 +38,10 @@ of JAX or of the JAX package, and exits non-zero if any phase fails:
 5. case1 by ``ParallelNFiSAM`` (the JAX package's bench.py solver:
    wavefront training, the fused posterior pass) for seeds 1-3, the same
    MMD gate; its seed-1 solve gives the kernel line's launch count;
-6. plaza1's first 5 incremental steps (5 poses a step) by
-   ``ParallelNFiSAM`` at the plaza configuration (2000 training samples,
-   K=9, hidden 8, lr 0.01, w=50/tol=0.01, 1000 posterior draws, seed 0),
+6. plaza1's first 5 incremental steps (5 poses a step) through the plaza
+   runner (``nfisam_tpu_torch.scripts.plaza_family_run``: ``ParallelNFiSAM``
+   at the plaza configuration, 2000 training samples, K=9, hidden 8, lr
+   0.01, w=50/tol=0.01, 1000 posterior draws, seed 0; mode repair off),
    per-step times, cliques trained and launches; gate: max posterior-mean
    translation error against the ``.fg``'s ground truth <= max(3x the
    JAX package's truth-initialised MAP floor's max error over the prefix,
@@ -70,10 +71,11 @@ of JAX or of the JAX package, and exits non-zero if any phase fails:
    iterations, K=9, lr 0.025, 1000 posterior draws, mode repair on) for
    seeds 0-2; gates per seed: every pose's posterior-mean error < 3 m and
    the posterior weight on X1->L1 and on X4->L2 > 0.7;
-11. plaza1_ada0.2's first 5 incremental steps (5 poses a step) by
-   ``ParallelNFiSAM`` at the plaza configuration with mode repair on;
-   the DA true-association weight, the resolved fraction and the repair
-   log are printed; gate: as plaza1's, with this prefix's floor;
+11. plaza1_ada0.2's first 5 incremental steps (5 poses a step) through
+   the plaza runner with mode repair on; the runner's DA snapshots (the
+   true-association weight and the resolved fraction, at steps 0 and 4)
+   and the repair log are printed; gate: as plaza1's, with this prefix's
+   floor;
 12. the MAP floors at full size: the truth-initialised banked floor
    (``IncrementalGaussNewtonMAP``) over the whole plaza1 and 1101-pose
    Manhattan graphs, ``GaussNewtonMAP`` from the truth over the whole
@@ -194,20 +196,38 @@ of JAX or of the JAX package, and exits non-zero if any phase fails:
    dim bucket; gates: the runner's accuracy gate, the anchored RMSE <= 2x
    the JAX package's worst over seeds 0-2 on the CPU at the same prefix,
    finite samples, the fused pass equal to the walk, and the specialised
-   kernel launched at (32, 16, 9) (the 32 bucket's flow).
+   kernel launched at (32, 16, 9) (the 32 bucket's flow);
+28. the plaza runner's other streams in one child (``PLAZA_FAMILY``:
+   plaza2, plaza1_ada0.4, plaza1_ada0.6 and plaza1_ada0.6 with
+   ``--defer-da``, mode repair on), each cut to ``PLAZA_FAMILY_STEPS``;
+   gates: the runner's divergence rule with the JAX package's float32
+   floor over the prefix and its DA resolution rule, finite samples, the
+   fused pass equal to the walk, the specialised kernel launched;
+29. the random_4x4 sweep's ``run_seed`` on files 0 and 1 in one child
+   (16 poses a file, one a step); gates: each file's translation RMSE <=
+   1.25x the JAX package's worst on that file over solver seeds 0-2 on
+   the CPU, finite samples, the fused pass equal to the walk, launches;
+30. the manhattan_plaza runner (``nfisam_tpu_torch.scripts.
+   manhattan_plaza_run``: the run harness, 500 iterations a fit, one pose
+   a step) cut to ``MANHATTAN_PLAZA_STEPS`` in a child; gates: the
+   runner's 1.1x rule against ``GaussNewtonMAP`` over the prefix from
+   the truth where it applies, translation RMSE <= 2x the JAX package's
+   CPU worst over seeds 0-2 at the prefix, finite samples, the fused pass
+   equal to the walk, launches, and the run directory's files those of
+   the JAX package's harness without the plots.
 
-Phases 25, 26, 27 and 11 (plaza1_ada0.2) run in child processes, started
+Phases 25-30 and 11 (plaza1_ada0.2) run in child processes, started
 after the kernel checks (which are timed alone on the card) and joined
 before step 14's fused-pass checks, where the host has at least
 ``PARALLEL_MIN_CORES`` usable cores and the card is in the ``Default``
-compute mode; otherwise phase 11 runs in this process and phases 25-27
+compute mode; otherwise phase 11 runs in this process and phases 25-30
 one after another after phase 24.  The host's core counts and the
 compute mode are printed first.  The children's launched shapes join
 this process's for the final check.
 
 Each solve's kernel launches are counted from 0 just before it and read
 just after; the specialised kernel line's ``launches`` are
-lawnmower_4x4's (18) and phase 27's, the generic kernel line's phase
+lawnmower_4x4's (18) and phases 27-30's, the generic kernel line's phase
 23's seed-1 solve through the command line; the phase-22 case1 solve's
 are printed and must be > 0.  The output ends with one ``{"kernels":
 [...]}`` JSON line (both kernels), the card's name and power limit, and
@@ -224,11 +244,15 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
+from nfisam_tpu_torch.scripts import manhattan_plaza_run as mpr
+from nfisam_tpu_torch.scripts import plaza_family_run as pfr
+from nfisam_tpu_torch.scripts import random_4x4_sweep as r44
 from nfisam_tpu_torch.scripts.manhattan_scale_run import (
     ANCHORED_FACTOR, RMSE_BOUND_M, floor_from_truth, host_samples,
     manhattan_gate, parse_args, point_errors, run_incremental,
@@ -259,14 +283,11 @@ BENCH_ARGS = dict(posterior_sample_num=1000, local_sample_num=2000,
 # landmarks still sit on their range rings, and the JAX package's
 # posterior misses L3 by 78 m there too)
 PLAZA1_FG = os.path.join(HERE, "data", "plaza1_factor_graph.fg")
-PLAZA_ARGS = dict(posterior_sample_num=1000, local_sample_num=2000,
-                  flow_iterations=2000, num_knots=9, learning_rate=0.01,
-                  hidden_dim=8, elimination_method="pose_first", seed=0,
-                  mode_repair=False)
+PLAZA_ARGS = {**pfr.solver_args(0), "mode_repair": False}
 PLAZA_STEPS = 5
 # the absolute floor of the plaza runs' gate on the max posterior-mean
 # translation error (scripts/plaza_family_run.py)
-PLAZA_GATE_M = 15.0
+PLAZA_GATE_M = pfr.GATE_M
 # the robots graph: R disjoint robots of T poses (__graft_entry__.py), at
 # that entry's solver settings with K=7 (the entry's K=6 would move the
 # numbers of earlier runs)
@@ -322,14 +343,6 @@ DA_TPU_WEIGHTS = {"X1": 0.996, "X2": 0.875, "X3": 0.817, "X4": 0.991}
 PLAZA_ADA_FG = os.path.join(HERE, "data", "plaza1_ada0.2_factor_graph.fg")
 PLAZA_ADA_ARGS = {**PLAZA_ARGS, "mode_repair": True}
 PLAZA_ADA_STEPS = 5
-# a DA factor counts as resolved at a posterior weight above this on its
-# true association (scripts/plaza_family_run.py)
-DA_RESOLVED = 0.9
-# the plaza prefixes' divergence gate (scripts/plaza_family_run.py:168-172):
-# max posterior-mean error <= max(3x the truth-initialised MAP floor's max
-# error over the prefix's own nodes and factors, 15 m), that floor the JAX
-# package's (JAX_PREFIX_FLOOR_MAX)
-PLAZA_FLOOR_FACTOR = 3.0
 # the MAP floors at full size: the truth-initialised banked floor
 # (plaza_family_run.py's map_floor recipe: 15 warm LM-CG iterations) over
 # the whole plaza1 and 1101-pose Manhattan graphs, and GaussNewtonMAP from
@@ -386,9 +399,76 @@ MAP_NLL_RTOL = 1e-5
 # divergence gate as in plaza_family_run.py.  Its float32 solve stops at
 # its 15-iteration cap near the truth start; the port's float64 floor
 # (printed beside) goes on farther (plaza1 max 3.2-3.3 m, JAX's own in
-# float64 2.15 m), so it would loosen the bound
+# float64 2.15 m), so it would loosen the bound.  The plaza family's at
+# PLAZA_FAMILY_STEPS: ``JAX_PLATFORMS=cpu python
+# tests/test_torch_plaza_family.py --steps N --floors``
 JAX_PREFIX_FLOOR_MAX = {"plaza1": 0.9797327337812113,
-                        "plaza1_ada0.2": 1.006755522254178}
+                        "plaza1_ada0.2": 1.006755522254178,
+                        "plaza2": 0.8168075546115748,
+                        "plaza1_ada0.4": 0.913322461983286,
+                        "plaza1_ada0.6": 1.0991732382380441,
+                        "plaza1_ada0.6_deferda": 1.122777384976389}
+# the plaza runner's other streams (nfisam_tpu_torch/scripts/
+# plaza_family_run.py, the JAX package's scripts/plaza_family_run.py:
+# PLAZA_ARGS with mode repair on, the runner's default), in one child:
+# label -> (dataset, --defer-da), each cut to PLAZA_FAMILY_STEPS[label]
+# steps: PLAZA_STEPS, or the smallest longer prefix where the JAX
+# package's own CPU runs at PLAZA_STEPS fail the runner's divergence gate
+# (``JAX_PLATFORMS=cpu python tests/test_torch_plaza_family.py``, each
+# step's max error).  At 5 steps the JAX package's plaza1_ada0.4 misses
+# by 111.3 / 34.2 / 110.0 m over seeds 0-2 and plaza1_ada0.6 by 80.8 /
+# 16.0 / 108.9 m, with --defer-da 100.4 / 87.2 / 86.8 m; plaza2 passes for
+# seeds 0-2 (3.71 / 6.57 / 4.43 m) but not seed 3 (17.64 m: L3 on its
+# range ring from 5 ranges along a 2 m path; the port's seeds 0-7 on the
+# card 18.21, 8.27, 2.54, 5.10, 8.54, 7.57, 4.74, 3.63 m).  Gates: the
+# runner's divergence rule at the prefix with the JAX package's float32
+# floor (JAX_PREFIX_FLOOR_MAX) and its resolution rule (the ada streams:
+# those JAX runs meet it, JAX_PLAZA_FAMILY), finite samples, the fused
+# pass equal to the walk, launches of the specialised kernel
+PLAZA_FAMILY = {"plaza2": ("plaza2", False),
+                "plaza1_ada0.4": ("plaza1_ada0.4", False),
+                "plaza1_ada0.6": ("plaza1_ada0.6", False),
+                "plaza1_ada0.6_deferda": ("plaza1_ada0.6", True)}
+PLAZA_FAMILY_STEPS = {"plaza2": 6, "plaza1_ada0.4": 7, "plaza1_ada0.6": 6,
+                      "plaza1_ada0.6_deferda": 6}
+# label -> the JAX package's CPU runs at that prefix over seeds 0-2 (and 3
+# for plaza2): (max posterior-mean errors m, last DA resolutions)
+JAX_PLAZA_FAMILY = {
+    "plaza2": ((2.5881504288380763, 3.678218765756142, 5.140943931056928,
+                5.224159703352074), None),
+    "plaza1_ada0.4": ((5.891907379356887, 2.83217577428406,
+                       3.689497862971998), (1.0, 0.923, 1.0)),
+    "plaza1_ada0.6": ((3.5991471573093565, 10.627988895230445,
+                       3.8606240442223583), (0.857, 0.929, 0.857)),
+    "plaza1_ada0.6_deferda": ((7.093219235191531, 3.376387663567736,
+                               3.0433499467967966), (0.786, 0.857, 0.857))}
+# the random_4x4 sweep (nfisam_tpu_torch/scripts/random_4x4_sweep.py, the
+# JAX package's scripts/random_4x4_sweep.py: 16 poses a file, one a step,
+# PLAZA_ARGS' settings, mode repair on) on RANDOM_4X4_FILES in one child;
+# gate: each file's translation RMSE <= LAWNMOWER_GATE_FACTOR x the worst
+# of the JAX package's runs of that file over solver seeds 0-2 on the CPU
+# (``JAX_PLATFORMS=cpu python tests/test_torch_random_4x4.py``), finite
+# samples, the fused pass equal to the walk, launches.  Files 0 and 1:
+# with file 2 the script in turn was projected to ~1,077 s of phases, at
+# its 1,080 s limit (PERF.md §4)
+RANDOM_4X4_FILES = (0, 1)
+JAX_RANDOM_4X4_WORST = {0: 4.258713847160365, 1: 13.554290557949342}
+# the manhattan_plaza runner (nfisam_tpu_torch/scripts/manhattan_plaza_run.py,
+# the JAX package's scripts/manhattan_plaza_run.py: the run harness, 500
+# iterations with no plateau stop, one pose a step) cut to
+# MANHATTAN_PLAZA_STEPS of 136 steps in a child; gates: the runner's 1.1x
+# rule against GaussNewtonMAP over the prefix from the truth column (the
+# smallest prefix of >= 30 steps at which the JAX package's own runs over
+# solver seeds 0-2 on the CPU meet it, ``JAX_PLATFORMS=cpu python
+# tests/test_torch_manhattan_plaza.py``),
+# translation RMSE <= MANHATTAN_PARITY_FACTOR x the worst of those runs at
+# the prefix, finite samples, the fused pass equal to the walk, launches,
+# and the run directory's artifact set that of the JAX package's harness
+# without its plots.  At 30 steps the JAX package's seed 0 reads 8.1099 m
+# against a floor of 6.9812 m (1.1617x); at 31 its seeds read 7.1612,
+# 3.7534 and 4.9292 m against 7.0444 m (<= 1.0166x)
+MANHATTAN_PLAZA_STEPS = 31
+JAX_MANHATTAN_PLAZA_WORST = 7.161159029249161
 # the Manhattan-scale runner (nfisam_tpu_torch/scripts/manhattan_scale_run.py,
 # the JAX package's scripts/manhattan_scale_run.py) at its configuration
 # (:197-202: ParallelNFiSAM, one pose a step, 2000 training samples, <= 500
@@ -598,25 +678,6 @@ def solve_case1(seed: int, device, parallel: bool = False, **overrides):
     solver = (ParallelNFiSAM if parallel else NFiSAM)(args, device=device)
     steps, per_step = run_incremental(solver, batches, device)
     return float(sum(s["s"] for s in steps)), steps, per_step, solver
-
-
-def solve_plaza(device, steps: int = PLAZA_STEPS, **overrides):
-    """The first ``steps`` incremental steps of plaza1 (5 poses a step)
-    by ``ParallelNFiSAM`` at the plaza configuration.  Returns (per-step
-    timings, last step's host samples, ground truth by name, solver)."""
-    from nfisam_tpu_torch.io import (graph_file_parser,
-                                     group_nodes_factors_incrementally)
-    from nfisam_tpu_torch.parallel import ParallelNFiSAM
-    from nfisam_tpu_torch.solver import NFiSAMArgs
-
-    nodes, truth, factors = graph_file_parser(PLAZA1_FG)
-    batches = group_nodes_factors_incrementally(
-        nodes, factors, incremental_step=5)[:steps]
-    solver = ParallelNFiSAM(NFiSAMArgs(**{**PLAZA_ARGS, **overrides}),
-                            device=device)
-    timings, per_step = run_incremental(solver, batches, device)
-    return (timings, per_step[-1],
-            {str(v.name): np.asarray(t) for v, t in truth.items()}, solver)
 
 
 def robots_graph(core, factors, R: int = ROBOTS, T: int = ROBOT_STEPS):
@@ -833,54 +894,6 @@ def da_weights(mixtures, samples) -> dict:
             for f in mixtures}
 
 
-def geometric_true_component(factor, truth) -> int:
-    """Index of the candidate whose ground-truth distance to the observer
-    best matches the measured range: the true association, which the
-    ``.fg`` grammar does not label (``scripts/plaza_family_run.py``)."""
-    obs = float(np.asarray(factor.observation).reshape(-1)[0])
-    o = np.asarray(truth[str(factor.vars[0].name)])[:2]
-    ds = [abs(float(np.linalg.norm(np.asarray(truth[str(v.name)])[:2] - o))
-              - obs) for v in factor.vars[1:]]
-    return int(np.argmin(ds))
-
-
-def hypo_snapshot(mixtures, samples, truth):
-    """Over the k-way (k >= 2 candidates) DA factors whose variables all
-    have samples: (count, mean posterior weight on the true association,
-    fraction resolved onto it, weight > ``DA_RESOLVED``); None if there
-    is none (``scripts/plaza_family_run.py``'s rule)."""
-    ws = [float(posterior_weights(f, samples)[
-        geometric_true_component(f, truth)])
-        for f in mixtures
-        if len(f.vars) >= 3 and all(str(v.name) in samples for v in f.vars)]
-    if not ws:
-        return None
-    ws = np.asarray(ws)
-    return len(ws), float(ws.mean()), float((ws > DA_RESOLVED).mean())
-
-
-def solve_plaza_ada(device, steps: int = PLAZA_ADA_STEPS, **overrides):
-    """The first ``steps`` incremental steps of plaza1_ada0.2 (5 poses a
-    step) by ``ParallelNFiSAM`` at the plaza configuration with mode
-    repair on.  Returns (per-step timings, per-step host samples, ground
-    truth by name, the DA factors of each step's graph, solver)."""
-    from nfisam_tpu_torch.io import (graph_file_parser,
-                                     group_nodes_factors_incrementally)
-    from nfisam_tpu_torch.parallel import ParallelNFiSAM
-    from nfisam_tpu_torch.solver import NFiSAMArgs
-
-    nodes, truth, factors = graph_file_parser(PLAZA_ADA_FG)
-    batches = group_nodes_factors_incrementally(
-        nodes, factors, incremental_step=5)[:steps]
-    solver = ParallelNFiSAM(NFiSAMArgs(**{**PLAZA_ADA_ARGS, **overrides}),
-                            device=device)
-    timings, per_step = run_incremental(solver, batches, device)
-    return (timings, per_step,
-            {str(v.name): np.asarray(t) for v, t in truth.items()},
-            [mixtures_of(batches[:i + 1]) for i in range(len(batches))],
-            solver)
-
-
 def fused_vs_per_clique(solver):
     """The fused pass and the per-clique walk on the solver's final state,
     each pair drawn from the same key stream (rewound between the two),
@@ -950,36 +963,20 @@ def map_case(label: str, parse, new_solver) -> dict:
     return floor_from_truth(m, truth)
 
 
-def prefix_floor(path: str, steps: int, device, step: int = 5) -> dict:
-    """The truth-initialised floor over the nodes and factors of a
-    stream's first ``steps`` incremental steps (``step`` poses a step)."""
-    from nfisam_tpu_torch.io import (graph_file_parser,
-                                     group_nodes_factors_incrementally)
-    from nfisam_tpu_torch.solver import IncrementalGaussNewtonMAP
-
-    nodes, truth, factors = graph_file_parser(path)
-    batches = group_nodes_factors_incrementally(
-        nodes, factors, incremental_step=step)[:steps]
-    m = IncrementalGaussNewtonMAP(device=device)
-    m.update([n for ns, _ in batches for n in ns],
-             [f for _, fs in batches for f in fs])
-    return floor_from_truth(m, truth)
-
-
 def plaza_floor_gate(label: str, worst: float, floor: dict) -> None:
     """``scripts/plaza_family_run.py``'s divergence gate: max error <=
     max(3x the JAX package's floor max error over the prefix, 15 m), with
     the port's own floor (``floor``) printed beside it."""
-    bound = max(PLAZA_FLOOR_FACTOR * JAX_PREFIX_FLOOR_MAX[label],
+    bound = max(pfr.FLOOR_FACTOR * JAX_PREFIX_FLOOR_MAX[label],
                 PLAZA_GATE_M)
     log(f"{label} gate: max posterior-mean translation error {worst:.3f} m"
-        f" (<= max({PLAZA_FLOOR_FACTOR} x the JAX package's floor max "
+        f" (<= max({pfr.FLOOR_FACTOR} x the JAX package's floor max "
         f"{JAX_PREFIX_FLOOR_MAX[label]:.4f}, {PLAZA_GATE_M}) = "
         f"{bound:.3f}); the port's truth-initialised MAP floor over the "
         f"prefix: RMSE {floor['rmse']:.4f} m, max {floor['max']:.4f} m, "
         f"{floor['iters']} LM iterations, NLL {floor['nll']:.4f}, "
         f"{floor['s']:.3f} s")
-    if not worst <= bound:
+    if pfr.divergence_reasons(worst, JAX_PREFIX_FLOOR_MAX[label], None):
         raise SystemExit(f"{label} divergence gate failed")
 
 
@@ -1588,14 +1585,28 @@ def case1_phase(device, parallel: bool, name2dim):
     return launches, solver
 
 
-def plaza_phase(device):
-    """The plaza1 prefix, its kernel launches counted, then the
-    translation-error gate.  Returns the solver."""
+def plaza_prefix(dataset: str, steps: int, device, defer_da: bool = False,
+                 **overrides) -> tuple:
+    """The plaza runner's solve (``plaza_family_run.solve_plaza``) of a
+    stream's first ``steps`` steps, its kernel launches counted from 0:
+    (the runner's result, per-step timings, last step's host samples by
+    name, the truth by name, the port's floor over the prefix, the solver,
+    launches)."""
     from nfisam_tpu_torch.flows import ar_inverse_kernel
 
+    argv = [dataset, "--limit-steps", str(steps), "--device", str(device)]
     ar_inverse_kernel.reset_launches()
-    steps, samples, truth, solver = solve_plaza(device)
-    launches = ar_inverse_kernel.launches
+    out = pfr.solve_plaza(pfr.parse_args(
+        argv + (["--defer-da"] if defer_da else [])), **overrides)
+    return out + (ar_inverse_kernel.launches,)
+
+
+def plaza_phase(device):
+    """The plaza1 prefix through the plaza runner (mode repair off), its
+    kernel launches counted, then the translation-error gate.  Returns
+    the solver."""
+    _, steps, samples, truth, floor, solver, launches = plaza_prefix(
+        "plaza1", PLAZA_STEPS, device, **PLAZA_ARGS)
     worst, rmse = translation_errors(samples, truth)
     log(f"plaza1 first {PLAZA_STEPS} steps, ParallelNFiSAM: total "
         f"{sum(st['s'] for st in steps):.3f} s, ar_inverse launches "
@@ -1606,8 +1617,7 @@ def plaza_phase(device):
     if launches == 0:
         raise SystemExit("the plaza1 solve never launched the ar_inverse "
                          "kernel")
-    plaza_floor_gate("plaza1", worst,
-                     prefix_floor(PLAZA1_FG, PLAZA_STEPS, device))
+    plaza_floor_gate("plaza1", worst, floor)
     return solver
 
 
@@ -1778,35 +1788,28 @@ def case1_da_phase(device):
 
 
 def plaza_ada_phase(device):
-    """The plaza1_ada0.2 prefix, its kernel launches counted, the DA
-    weights a step, then the translation-error gate.  Returns the
-    solver."""
-    from nfisam_tpu_torch.flows import ar_inverse_kernel
-
-    ar_inverse_kernel.reset_launches()
-    steps, per_step, truth, mixtures, solver = solve_plaza_ada(device)
-    launches = ar_inverse_kernel.launches
-    samples = per_step[-1]
+    """The plaza1_ada0.2 prefix through the plaza runner (mode repair on),
+    its kernel launches counted, its DA snapshots, then the
+    translation-error gate.  Returns the solver."""
+    result, steps, samples, truth, floor, solver, launches = plaza_prefix(
+        "plaza1_ada0.2", PLAZA_ADA_STEPS, device, **PLAZA_ADA_ARGS)
     worst, rmse = translation_errors(samples, truth)
     log(f"plaza1_ada0.2 first {PLAZA_ADA_STEPS} steps, ParallelNFiSAM: "
         f"total {sum(st['s'] for st in steps):.3f} s, ar_inverse launches "
-        f"{launches}; {len(mixtures[-1])} DA factors, "
-        f"{len(solver.physical_bayes_tree.clique_nodes)} cliques; repair "
-        f"log {solver.mode_repair_log}; bucket log {solver.bucket_log}")
+        f"{launches}; {len(solver.physical_bayes_tree.clique_nodes)} "
+        f"cliques; repair log {solver.mode_repair_log}; bucket log "
+        f"{solver.bucket_log}")
     log_steps(steps)
-    for i, (ms, ps) in enumerate(zip(mixtures, per_step)):
-        snap = hypo_snapshot(ms, ps, truth)
-        if snap is not None:
-            log(f"  step {i}: DA true-association mean weight "
-                f"{snap[1]:.4f} over {snap[0]} factors, resolved "
-                f"(> {DA_RESOLVED}) {snap[2]:.4f}")
+    for snap in result["hypo_curve"]:
+        log(f"  step {snap['step']}: DA true-association mean weight "
+            f"{snap['mean_true_weight']} over {snap['n']} factors, resolved "
+            f"(> {pfr.RESOLVED_WEIGHT}) {snap['resolved_frac']}")
     log(f"plaza1_ada0.2: RMSE {rmse:.3f} m over {len(samples)} variables")
     check_finite(samples, "plaza1_ada0.2")
     if launches == 0:
         raise SystemExit("the plaza1_ada0.2 solve never launched the "
                          "ar_inverse kernel")
-    plaza_floor_gate("plaza1_ada0.2", worst,
-                     prefix_floor(PLAZA_ADA_FG, PLAZA_ADA_STEPS, device))
+    plaza_floor_gate("plaza1_ada0.2", worst, floor)
     return solver
 
 
@@ -2950,9 +2953,13 @@ def r2_odometry_phase(device) -> None:
 # phases in child processes, side by side with the main process's
 # --------------------------------------------------------------------------
 # a host with at least this many usable cores and the card in the
-# ``Default`` compute mode runs plaza1_ada0.2 and phases 25-27 in child
-# processes beside the main process's phases; else one after another
+# ``Default`` compute mode runs plaza1_ada0.2 and phases 25-30 in child
+# processes beside the main process's phases, at most MAX_CHILDREN at
+# once and at CHILD_NICENESS (all seven at once slowed the main path:
+# PERF.md §5); else one after another
 PARALLEL_MIN_CORES = 4
+MAX_CHILDREN = 4
+CHILD_NICENESS = 10
 DRYRUN = [sys.executable, "-m", "nfisam_tpu_torch.parallel.dryrun"]
 
 
@@ -2980,9 +2987,34 @@ def start_child(label: str, argv: list, tmp: str) -> dict:
     proc = subprocess.Popen(argv + ["--result", result], cwd=HERE, env=env,
                             stdout=out, stderr=subprocess.STDOUT,
                             start_new_session=True)
+    # below the main path's CPU priority (the processes it starts inherit
+    # it): the main path is host-bound and sets the script's wall
+    os.setpriority(os.PRIO_PROCESS, proc.pid, CHILD_NICENESS)
     log(f"{label}: started in a child process (pid {proc.pid})")
     return {"label": label, "proc": proc, "out": out, "result": result,
             "t0": time.perf_counter()}
+
+
+def start_children(phases: list, tmp: str, limit: int) -> tuple:
+    """Start the child processes of ``phases`` ((label, argv), in that
+    order), at most ``limit`` running at once: a thread starts the next
+    one as an earlier one exits.  Returns (the children started, a list
+    the thread fills; the thread, whose ``stop`` event ends the queue and
+    which has started them all once it has ended)."""
+    children, stop = [], threading.Event()
+
+    def run():
+        for label, argv in phases:
+            while not stop.is_set() and sum(
+                    c["proc"].poll() is None for c in children) >= limit:
+                stop.wait(1.0)
+            if stop.is_set():
+                return
+            children.append(start_child(label, argv, tmp))
+    starter = threading.Thread(target=run, daemon=True)
+    starter.stop = stop
+    starter.start()
+    return children, starter
 
 
 def join_child(child: dict) -> dict:
@@ -3005,13 +3037,16 @@ def child_phases(with_plaza_ada: bool) -> list:
     """(label, argv) of phases 25 and 26 (the dry runs of
     ``nfisam_tpu_torch.parallel``: 2 ranks chunking buckets, 4 ranks on a
     (clique, data) mesh, all on this card), ``with_plaza_ada`` of
-    plaza1_ada0.2, and of the headline Manhattan prefix."""
+    plaza1_ada0.2, and of the runners' phases: the headline Manhattan
+    prefix (27), the plaza family (28), random_4x4 (29) and manhattan_plaza
+    (30)."""
     phases = [("phase 25 multihost", DRYRUN + ["multihost"]),
               ("phase 26 multichip 4", DRYRUN + ["multichip", "4"])]
     this = [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--child"]
     if with_plaza_ada:
         phases.append(("plaza1_ada0.2", this + ["plaza_ada"]))
-    phases.append(("manhattan g16 pose_first", this + ["manhattan_g16"]))
+    phases += [(label, this + [name])
+               for name, (label, _, _) in RUNNER_CHILDREN.items()]
     return phases
 
 
@@ -3071,20 +3106,6 @@ def manhattan_g16_readings(device, steps: int = MANHATTAN_G16_STEPS,
             "wall_s": wall}
 
 
-def manhattan_g16_child(result: str) -> int:
-    """The headline Manhattan prefix as a child process: its readings
-    (``manhattan_g16_readings``) to ``result``."""
-    from nfisam_tpu_torch.utils.cuda_build import build_all_kernels
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    build_all_kernels()
-    readings = manhattan_g16_readings(torch.device("cuda"))
-    with open(result, "w") as fh:
-        json.dump(readings, fh)
-    return 0
-
-
 def manhattan_g16_report(r: dict) -> None:
     """The headline prefix's readings from its child, and its gates: the
     runner's accuracy gate, JAX parity, finite samples, the fused pass
@@ -3125,6 +3146,268 @@ def manhattan_g16_report(r: dict) -> None:
         raise SystemExit("manhattan g16 JAX-parity gate failed")
 
 
+def _kernel_readings(solver, samples) -> dict:
+    """The checks every new child makes on a final state, JSON-able: the
+    fused pass against the walk, finite samples, the launches by kernel
+    since the last reset."""
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+
+    launches = dict(ar_inverse_kernel.variant_launches)
+    rel, fused_s, walk_s = fused_vs_per_clique(solver)
+    return {"launches": launches, "fused_vs_walk": rel, "fused_s": fused_s,
+            "walk_s": walk_s, "finite": all(bool(np.isfinite(x).all())
+                                            for x in samples.values())}
+
+
+def _kernel_gates(label: str, r: dict) -> None:
+    if not r["finite"]:
+        raise SystemExit(f"{label}: non-finite samples")
+    if not r["launches"]["specialized"] > 0:
+        raise SystemExit(f"{label} never launched the specialised kernel")
+    if not r["fused_vs_walk"] <= FUSED_TOL:
+        raise SystemExit(f"{label}: the fused posterior pass disagrees with "
+                         f"the per-clique walk")
+
+
+def _child_shapes(readings: dict) -> list:
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+    readings["launched_shapes"] = sorted(ar_inverse_kernel.launched_shapes)
+    return readings
+
+
+def plaza_family_readings(device, steps: dict = None, **overrides) -> dict:
+    """Each stream of ``PLAZA_FAMILY`` through the plaza runner, cut to
+    ``steps[label]`` (default ``PLAZA_FAMILY_STEPS``; ``overrides`` of
+    the runner's solver arguments): its result, the port's floor over the
+    prefix, the max and RMS posterior-mean error unrounded, each step's
+    split, and the kernel readings on its final state (JSON-able)."""
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+
+    steps = steps or PLAZA_FAMILY_STEPS
+    ar_inverse_kernel.launched_shapes.clear()
+    streams = {}
+    for label, (dataset, defer_da) in PLAZA_FAMILY.items():
+        t0 = time.perf_counter()
+        result, timings, samples, truth, floor, solver, _ = plaza_prefix(
+            dataset, steps[label], device, defer_da, **overrides)
+        wall = time.perf_counter() - t0
+        worst, rmse = translation_errors(samples, truth)
+        log_steps(timings)
+        streams[label] = {
+            "result": result, "max_err": worst, "trans_rmse": rmse,
+            "floor": {k: v for k, v in floor.items() if k != "est"},
+            "cliques": len(solver.physical_bayes_tree.clique_nodes),
+            "repairs": list(map(str, solver.mode_repair_log)),
+            "wall_s": wall, **_kernel_readings(solver, samples)}
+    return _child_shapes({"streams": streams, "launches": {
+        k: sum(r["launches"][k] for r in streams.values())
+        for k in ("specialized", "generic")}})
+
+
+def plaza_family_report(r: dict) -> None:
+    """The plaza-family readings and their gates: the runner's divergence
+    rule with the JAX package's floor (JAX_PREFIX_FLOOR_MAX) and its
+    resolution rule, and the kernel gates."""
+    for label, st in r["streams"].items():
+        res, fl = st["result"], st["floor"]
+        jax_floor = JAX_PREFIX_FLOOR_MAX[label]
+        resolved = res["hypo_final"]["resolved_frac"] \
+            if "hypo_final" in res else None
+        log(f"{label} first {res['n_steps']} steps (plaza runner, "
+            f"ParallelNFiSAM, mode repair on): {st['wall_s']:.1f} s in the "
+            f"child, solve_s {res['solve_s']}, median step "
+            f"{res['median_step_s']} s; launches {st['launches']}; "
+            f"{st['cliques']} cliques; repair events {len(st['repairs'])} "
+            f"{st['repairs']}; DA snapshots {res['hypo_curve']}")
+        log(f"{label} gate: max posterior-mean translation error "
+            f"{st['max_err']:.3f} m, RMSE {st['trans_rmse']:.3f} m (<= "
+            f"max({pfr.FLOOR_FACTOR} x the JAX package's floor max "
+            f"{jax_floor:.4f}, {pfr.GATE_M}) = "
+            f"{max(pfr.FLOOR_FACTOR * jax_floor, pfr.GATE_M):.3f}); the "
+            f"port's floor over the prefix: RMSE {fl['rmse']:.4f} m, max "
+            f"{fl['max']:.4f} m, {fl['iters']} LM iterations; the JAX "
+            f"package on the CPU, seeds 0-2: {JAX_PLAZA_FAMILY.get(label)}")
+        log(f"{label}: DA resolution {resolved} (>= {pfr.RESOLUTION_GATE});"
+            f" fused pass vs walk {st['fused_vs_walk']:.3e}; posterior_s "
+            f"fused {st['fused_s']} s, per-clique {st['walk_s']} s")
+        _kernel_gates(label, st)
+        reasons = pfr.divergence_reasons(st["max_err"], jax_floor, resolved)
+        if reasons:
+            raise SystemExit(f"{label} divergence gate failed: "
+                             f"{'; '.join(reasons)}")
+
+
+def random_4x4_readings(device, files=RANDOM_4X4_FILES, limit_steps: int = 0,
+                        **overrides) -> dict:
+    """The random_4x4 sweep's ``run_seed`` on each of ``files`` (each cut to
+    ``limit_steps``, 0: whole; ``overrides`` of its solver arguments), in
+    that order: each file's record, its translation RMSE unrounded and the
+    kernel readings on its final state (JSON-able)."""
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+
+    ar_inverse_kernel.launched_shapes.clear()
+    out = {}
+    for k in files:
+        ar_inverse_kernel.reset_launches()
+        record, timings, samples, truth, solver = r44.run_seed(
+            k, device, limit_steps, **overrides)
+        log_steps(timings)
+        out[str(k)] = {"record": record,
+                       "trans_rmse": translation_errors(samples, truth)[1],
+                       **_kernel_readings(solver, samples)}
+    return _child_shapes({"files": out, "launches": {
+        k: sum(r["launches"][k] for r in out.values())
+        for k in ("specialized", "generic")}})
+
+
+def random_4x4_report(r: dict) -> None:
+    """The random_4x4 readings and their gates: each file's RMSE <=
+    LAWNMOWER_GATE_FACTOR x the JAX package's CPU worst on that file, and
+    the kernel gates."""
+    for k, st in r["files"].items():
+        rec, bound = st["record"], LAWNMOWER_GATE_FACTOR * \
+            JAX_RANDOM_4X4_WORST[int(k)]
+        log(f"random_4x4_seed{k} (the sweep's run_seed, {rec['n_steps']} "
+            f"steps): {rec['total_s']} s, median step "
+            f"{rec['median_step_s']} s; launches {st['launches']}; "
+            f"landmark RMSE {rec['landmark_rmse']} m")
+        log(f"random_4x4_seed{k} gate: translation RMSE "
+            f"{st['trans_rmse']:.4f} m (<= {LAWNMOWER_GATE_FACTOR} x the JAX "
+            f"package's worst over seeds 0-2 on the CPU "
+            f"{JAX_RANDOM_4X4_WORST[int(k)]:.4f} = {bound:.4f}); fused pass "
+            f"vs walk {st['fused_vs_walk']:.3e}")
+        _kernel_gates(f"random_4x4_seed{k}", st)
+        if not st["trans_rmse"] <= bound:
+            raise SystemExit(f"random_4x4_seed{k} gate failed")
+
+
+def manhattan_plaza_artifacts(batches) -> set:
+    """The files the JAX package's ``run_incrementally`` writes into a run
+    directory for ``batches``, the plots aside: the parameters and the
+    timers, and a step's samples, ordering, split timing, training losses
+    and clique dim timing, with its hypothesis weights from the first step
+    that brings a mixture factor."""
+    files = {"parameters", "step_timing", "step_list",
+             "posterior_sampling_timer", "fitting_timer"}
+    mixed = False
+    for i, (_, fs) in enumerate(batches):
+        mixed = mixed or any(hasattr(f, "posterior_weights") for f in fs)
+        files |= {f"step{i}{x}" for x in ("", "_ordering", "_split_timing",
+                                          "_step_training_loss",
+                                          "_dim_time")}
+        if mixed:
+            files.add(f"step{i}.hypoweights")
+    return files
+
+
+def manhattan_plaza_readings(device, steps: int = MANHATTAN_PLAZA_STEPS,
+                             **overrides) -> dict:
+    """The manhattan_plaza runner cut to ``steps`` steps (``overrides`` of
+    its solver arguments) in a case directory of its own: its result, its
+    translation RMSE and both floors unrounded, the run directory's files
+    (plots aside), the last step's artifact finite, and the kernel readings
+    on the final state (JSON-able)."""
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+
+    ar_inverse_kernel.launched_shapes.clear()
+    ar_inverse_kernel.reset_launches()
+    case_dir = tempfile.mkdtemp(prefix="manhattan_plaza_")
+    try:
+        t0 = time.perf_counter()
+        result, rmse, floor, solver = mpr.solve_manhattan_plaza(
+            mpr.parse_args(["--limit-steps", str(steps), "--device",
+                            str(device)]), case_dir, **overrides)
+        wall = time.perf_counter() - t0
+        run_dir = result["run_dir"]
+        files = sorted(f for f in os.listdir(run_dir)
+                       if not f.endswith(".png"))
+        last = np.loadtxt(os.path.join(run_dir, f"step{steps - 1}"))
+        with open(os.path.join(run_dir, "step_timing")) as fh:
+            step_s = [float(t) for t in fh.read().split()]
+        readings = {"result": result, "trans_rmse": rmse, "floor": floor,
+                    "files": files, "wall_s": wall, "step_s": step_s,
+                    "artifact_finite": bool(np.isfinite(last).all()),
+                    **_kernel_readings(solver, host_samples(
+                        solver._samples))}
+    finally:
+        shutil.rmtree(case_dir, ignore_errors=True)
+    return _child_shapes(readings)
+
+
+def manhattan_plaza_report(r: dict, steps: int = MANHATTAN_PLAZA_STEPS
+                           ) -> None:
+    """The manhattan_plaza readings and their gates: the runner's 1.1x rule
+    against the floor from the truth over the prefix, JAX parity, the
+    artifact set, and the kernel gates."""
+    from nfisam_tpu_torch.io import (graph_file_parser,
+                                     group_nodes_factors_incrementally)
+
+    res, fl = r["result"], r["floor"]
+    nodes, _, factors = graph_file_parser(mpr.DATA)
+    expected = manhattan_plaza_artifacts(group_nodes_factors_incrementally(
+        nodes, factors, incremental_step=1)[:steps])
+    parity = MANHATTAN_PARITY_FACTOR * JAX_MANHATTAN_PLAZA_WORST
+    log(f"manhattan_plaza first {res['n_steps']} steps (the run harness, "
+        f"ParallelNFiSAM, 500 iterations a fit): {r['wall_s']:.1f} s in the "
+        f"child; total_s {res['total_s']}, solve_s {res['solve_s']} (fit "
+        f"{res['fit_s']}, posterior {res['posterior_s']}), outside the "
+        f"steps {res['outside_solve_s']} s, median step "
+        f"{res['median_step_s']} s; launches {r['launches']}; "
+        f"{len(r['files'])} artifact files")
+    log(f"manhattan_plaza gate: translation RMSE {r['trans_rmse']:.4f} m, "
+        f"landmark {res['landmark_rmse']} m; GaussNewtonMAP over the prefix "
+        f"from the truth {fl['truth'][0]:.4f} m "
+        f"({r['trans_rmse'] / fl['truth'][0]:.4f}x, <= {mpr.FLOOR_GATE}), "
+        f"from the best of 512 "
+        f"draws {fl['draws'][0]:.4f} m; <= {MANHATTAN_PARITY_FACTOR} x the "
+        f"JAX package's worst over seeds 0-2 on the CPU "
+        f"{JAX_MANHATTAN_PLAZA_WORST:.4f} = {parity:.4f}; fused pass vs "
+        f"walk {r['fused_vs_walk']:.3e}")
+    _kernel_gates("manhattan_plaza", r)
+    if not r["artifact_finite"]:
+        raise SystemExit("manhattan_plaza: non-finite samples in the run "
+                         "directory")
+    if set(r["files"]) != expected:
+        raise SystemExit(f"manhattan_plaza: the run directory holds "
+                         f"{sorted(set(r['files']) ^ expected)} against the "
+                         f"JAX package's artifact set")
+    if not r["trans_rmse"] <= mpr.FLOOR_GATE * fl["truth"][0]:
+        raise SystemExit("manhattan_plaza floor gate failed")
+    if not r["trans_rmse"] <= parity:
+        raise SystemExit("manhattan_plaza JAX-parity gate failed")
+
+
+def runner_child(readings_fn, result: str) -> int:
+    """A runner's phase (27-30) as a child process: the kernels built,
+    then ``readings_fn(device)``'s readings and its seconds to
+    ``result``."""
+    from nfisam_tpu_torch.utils.cuda_build import build_all_kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_all_kernels()
+    t0 = time.perf_counter()
+    readings = readings_fn(torch.device("cuda"))
+    readings["child_s"] = time.perf_counter() - t0
+    with open(result, "w") as fh:
+        json.dump(readings, fh)
+    return 0
+
+
+# the runners' phases in child processes: --child name -> (label,
+# readings, report)
+RUNNER_CHILDREN = {
+    "manhattan_g16": ("manhattan g16 pose_first", manhattan_g16_readings,
+                      manhattan_g16_report),
+    "plaza_family": ("phase 28 plaza family", plaza_family_readings,
+                     plaza_family_report),
+    "random_4x4": ("phase 29 random_4x4", random_4x4_readings,
+                   random_4x4_report),
+    "manhattan_plaza": ("phase 30 manhattan_plaza", manhattan_plaza_readings,
+                        manhattan_plaza_report),
+}
+
+
 def stop_children(children: list) -> None:
     """Kill every child still running, with the processes it started."""
     for child in children:
@@ -3136,21 +3419,26 @@ def stop_children(children: list) -> None:
 def report_children(children: list) -> int:
     """Join the children, print their readings and fail on any gate: the
     dry runs gate themselves (a launch in every rank included); plaza1_
-    ada0.2's fused pass and the headline Manhattan prefix's gates are held
-    here, and both children's launched shapes join this process's for
-    ``check_launched_shapes``.  Returns the headline prefix's launches of
-    the specialised kernel (0 if it was not among the children)."""
+    ada0.2's fused pass and the runners' phases' gates (27-30) are held
+    here, and those children's launched shapes join this process's for
+    ``check_launched_shapes``.  Returns the runners' phases' launches of
+    the specialised kernel (0 if none was among the children)."""
     from nfisam_tpu_torch.flows import ar_inverse_kernel
 
-    g16_launches = 0
+    reports = {label: report for label, _, report in
+               RUNNER_CHILDREN.values()}
+    runner_launches = 0
     for child in children:
         r = join_child(child)
         label = child["label"]
-        if label == "manhattan g16 pose_first":
-            manhattan_g16_report(r)
-            g16_launches = r["launches"]["specialized"]
+        if label in reports:
+            reports[label](r)
+            runner_launches += r["launches"]["specialized"]
             ar_inverse_kernel.launched_shapes.update(
                 tuple(s) for s in r["launched_shapes"])
+            if "child_s" in r:
+                log(f"{label}: {r['child_s']:.1f} s of the phase in the "
+                    f"child")
         elif label == "plaza1_ada0.2":
             log(f"plaza1_ada0.2: fused pass vs per-clique walk on the final "
                 f"state, max |diff| {r['fused_vs_walk']:.3e} of the samples' "
@@ -3166,14 +3454,15 @@ def report_children(children: list) -> int:
             launches = r["launches"]
             log(f"{label}: ar_inverse launches by process {launches}; "
                 f"{r['wall_s']:.1f} s")
-    return g16_launches
+    return runner_launches
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also profile one solve with torch.profiler")
-    parser.add_argument("--child", choices=["plaza_ada", "manhattan_g16"],
+    parser.add_argument("--child", choices=["plaza_ada"] +
+                        list(RUNNER_CHILDREN),
                         help="run one phase as a child of the main run")
     parser.add_argument("--result", help="a child's gate readings (JSON)")
     opts = parser.parse_args()
@@ -3182,9 +3471,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
               file=sys.stderr)
         return 1
+    if opts.child == "plaza_ada":
+        return plaza_ada_child(opts.result)
     if opts.child:
-        return {"plaza_ada": plaza_ada_child,
-                "manhattan_g16": manhattan_g16_child}[opts.child](opts.result)
+        return runner_child(RUNNER_CHILDREN[opts.child][1], opts.result)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3197,7 +3487,7 @@ def main() -> int:
     log(f"len(os.sched_getaffinity(0)) {usable}")
     log(f"compute mode {compute_mode}")
     side_by_side = usable >= PARALLEL_MIN_CORES and compute_mode == "Default"
-    log(f"plaza1_ada0.2 and phases 25-27: "
+    log(f"plaza1_ada0.2 and phases 25-30: "
         f"{'side by side, in child processes' if side_by_side else 'one after another'}"
         f" (needs >= {PARALLEL_MIN_CORES} usable cores and the Default "
         f"compute mode)")
@@ -3221,20 +3511,23 @@ def main() -> int:
     # the kernels were timed above, alone on the card; from here on child
     # processes may share it
     child_tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    children = [start_child(label, argv, child_tmp) for label, argv in
-                child_phases(True)] if side_by_side else []
+    children, starter = start_children(
+        child_phases(True) if side_by_side else [], child_tmp, MAX_CHILDREN)
     try:
         return run_phases(opts, device, kind, smi, entries, children,
-                          child_tmp, side_by_side, t_start)
+                          starter, child_tmp, side_by_side, t_start)
     finally:
+        starter.stop.set()
+        starter.join()
         stop_children(children)
         shutil.rmtree(child_tmp, ignore_errors=True)
 
 
-def run_phases(opts, device, kind, smi, entries, children, child_tmp,
-               side_by_side, t_start) -> int:
-    """The main path's phases, the children joined, the checks on the
-    final states and the result lines."""
+def run_phases(opts, device, kind, smi, entries, children, starter,
+               child_tmp, side_by_side, t_start) -> int:
+    """The main path's phases, the children joined (``starter`` has
+    started them all once it has ended), the checks on the final states
+    and the result lines."""
     from nfisam_tpu_torch.io import graph_file_parser
 
     nodes, _, _ = graph_file_parser(CASE1_FG)
@@ -3284,6 +3577,7 @@ def run_phases(opts, device, kind, smi, entries, children, child_tmp,
     r2_odometry_phase(device)
     log_elapsed(t_start)
     if side_by_side:
+        starter.join()
         entries[0]["launches"] += report_children(children)
     else:
         for label, argv in child_phases(False):

@@ -166,15 +166,22 @@ class BinaryFactorMixture(LikelihoodFactor):
         """Hypothesis weights re-evaluated on posterior samples (a mapping
         variable -> (n, dim) array or tensor): each sample's normalized
         component likelihoods, 0.5 each where all vanish, summed over
-        samples and normalized."""
+        samples and normalized.  A component density below the smallest
+        normal float32 counts as 0, as the JAX package's does (XLA flushes
+        subnormals to zero), so a sample that every hypothesis misses
+        splits evenly in both packages."""
         x = np.concatenate(
             [var2x[v].cpu().numpy() if torch.is_tensor(var2x[v])
              else np.asarray(var2x[v]) for v in self.vars],
             axis=1).astype(np.float32)
-        like = np.stack([
-            torch.exp(comp.log_pdf(torch.as_tensor(
-                x[:, self.comp2idx[comp]]))).numpy() * self.weights[i]
-            for i, comp in enumerate(self.components)])
+        tiny = np.finfo(np.float32).tiny
+
+        def pdf(comp) -> np.ndarray:
+            p = torch.exp(comp.log_pdf(torch.as_tensor(
+                x[:, self.comp2idx[comp]]))).numpy()
+            return np.where(p < tiny, np.float32(0.0), p)
+        like = np.stack([pdf(comp) * self.weights[i]
+                         for i, comp in enumerate(self.components)])
         tot = like.sum(axis=0)
         ok = tot > 0.0
         hypo = np.full((len(self.components), x.shape[0]), 0.5)

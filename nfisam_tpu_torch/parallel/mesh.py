@@ -35,6 +35,7 @@ from ..flows.base_dist import BaseDistribution
 from ..flows.model import negative_log_likelihood
 from ..flows.nsf import PARAM_NAMES, NSFConfig, init_flow_params
 from ..train.trainer import ADAM_B1, ADAM_B2, ADAM_EPS, _flatten
+from ..utils.device import resolve_device
 from ..utils.keys import split_host, torch_generator
 
 
@@ -197,8 +198,10 @@ def build_sharded_train_step(cfg: NSFConfig, mesh: Mesh,
     summed per-clique mean NLL.  Returns ``(train_step, init, shard)``:
     ``train_step(params, opt_state, data) -> (params, opt_state,
     losses)`` with the losses of every clique of the stack (gathered over
-    the clique axis), ``init(key, n_cliques) -> (params, opt_state)`` and
-    ``shard(data_stack)`` this rank's block of a (B, n, dim) stack."""
+    the clique axis), ``init(key, n_cliques, device=None) -> (params,
+    opt_state)`` (``device`` by ``resolve_device``: the card unless the
+    caller names another) and ``shard(data_stack)`` this rank's block of a
+    (B, n, dim) stack."""
     base = BaseDistribution(cfg.circular_mask)
 
     def shard(data_stack: torch.Tensor) -> torch.Tensor:
@@ -232,7 +235,8 @@ def build_sharded_train_step(cfg: NSFConfig, mesh: Mesh,
         losses = all_gather_rows(loss, mesh.group("clique"))
         return _unstack_flat(flat, like), (mu, nu, step), losses
 
-    def init(key, n_cliques: int, device="cpu"):
+    def init(key, n_cliques: int, device=None):
+        device = resolve_device(device)
         keys = split_host(key, n_cliques)[mesh.rows(n_cliques, "clique")]
         members = [init_flow_params(torch_generator(k, device), cfg, device)
                    for k in keys]

@@ -328,6 +328,42 @@ def test_cuda_graphed_training_equals_eager(cuda, monkeypatch):
             assert all(torch.equal(a[k], b[k]) for k in a)
 
 
+def test_cuda_plaza_prefix_step_is_repeatable(cuda):
+    """One step of plaza1_ada0.4 through the plaza runner at its
+    configuration (mode repair on), solved twice in one process: the same
+    samples bit for bit, the same DA snapshot and kernel launches."""
+    runs = []
+    for _ in range(2):
+        result, _, samples, _, _, solver, launches = chip_smoke.plaza_prefix(
+            "plaza1_ada0.4", 1, cuda)
+        runs.append((samples, result["hypo_curve"], launches))
+    (a, hypo_a, n_a), (b, hypo_b, n_b) = runs
+    assert set(a) == set(b) and n_a == n_b > 0 and hypo_a == hypo_b
+    assert all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def test_cuda_manhattan_plaza_lone_fits_take_the_graphed_path(
+        cuda, monkeypatch, tmp_path):
+    """The manhattan_plaza runner's first 3 steps: every lone clique's fit
+    (a bucket of one; 500 iterations, no held-out rows, no shard) captures
+    its loss and gradient in a CUDA graph, one capture a fit."""
+    from nfisam_tpu_torch.scripts import manhattan_plaza_run as mpr
+    from nfisam_tpu_torch.train import trainer
+
+    made = []
+
+    class Counting(trainer._GraphedLossGrad):
+        def __init__(self, *a):
+            super().__init__(*a)
+            made.append(self)
+    monkeypatch.setattr(trainer, "_GraphedLossGrad", Counting)
+    _, _, _, solver = mpr.solve_manhattan_plaza(
+        mpr.parse_args(["--limit-steps", "3", "--device", "cuda"]),
+        str(tmp_path))
+    lone = sum(1 for _, _, b in solver.bucket_log if b == 1)
+    assert lone > 0 and len(made) == lone
+
+
 def test_cuda_banked_floor_matches_the_cpu(cuda):
     """The banked NLL (rtol 1e-5) and its gradient (1e-4 of the largest
     entry, the CPU parity tests' tolerance) on the card and on the CPU at

@@ -423,7 +423,12 @@ if __name__ == "__main__":
              chip_smoke.PLAZA_ADA_STEPS)):
         r = jax_prefix_floor(path, steps)
         r64 = jax_prefix_floor(path, steps, JaxFloat64MAP)
-        ours = chip_smoke.prefix_floor(path, steps, "cpu")
+        from nfisam_tpu_torch.scripts import plaza_family_run as pfr
+        nodes, truth, factors, batches, _ = pfr.load_stream(path, False,
+                                                            steps)
+        m = IncrementalGaussNewtonMAP(device="cpu")
+        m.update(*pfr.solved_graph(nodes, factors, batches, True))
+        ours = pfr.map_floor(m, truth)[2]
         print(f"{label} first {steps} steps' floor: JAX RMSE "
               f"{r['rmse']:.4f} m, max {r['max']!r} m, {r['iters']} LM "
               f"iterations, NLL {r['nll']:.4f}; JAX in float64 RMSE "

@@ -108,13 +108,30 @@ def test_world_one_train_step_matches_jax():
     step, init, shard = build_sharded_train_step(cfg, make_mesh(), 0.05)
     params = [{k: torch.tensor(np.asarray(v)) for k, v in f.items()}
               for f in jp]
-    _, state = init(np.array([0, 7], np.uint32), 4)
+    _, state = init(np.array([0, 7], np.uint32), 4, device="cpu")
     params, _, loss = step(params, state, shard(data))
     np.testing.assert_allclose(loss.numpy(), np.asarray(jloss), **JAX_TOL)
     for mine, ref in zip(params, jparams):
         for k in ref:
             np.testing.assert_allclose(mine[k].numpy(), np.asarray(ref[k]),
                                        **JAX_TOL)
+
+
+def test_train_step_init_without_a_device_wants_the_card():
+    """``init`` names no device by default: it follows the package's rule
+    (``resolve_device``), so on a host without a card it raises instead
+    of putting the stack on the CPU, and on the CPU when asked."""
+    from nfisam_tpu_torch.parallel import build_sharded_train_step
+    cfg, _ = inputs("step")
+    _, init, _ = build_sharded_train_step(cfg, make_mesh(), 0.05)
+    key = np.array([0, 7], np.uint32)
+    params, (mu, _, step) = init(key, 4, device="cpu")
+    assert params[0]["W1"].device.type == "cpu" and step == 0
+    if torch.cuda.is_available():
+        assert init(key, 4)[0][0]["W1"].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init(key, 4)
 
 
 def test_sharded_conditional_sampler_is_exact(ranks):

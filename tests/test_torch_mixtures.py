@@ -126,6 +126,27 @@ def test_posterior_weights_match_jax(case1_da):
         assert abs(got.sum() - 1.0) < 1e-12
 
 
+@pytest.mark.parametrize("spread", [8.0, 20.0])
+def test_posterior_weights_where_every_hypothesis_misses(case1_da, spread):
+    """Samples scattered far from the truth: most component densities
+    fall below float32's smallest normal number, which the JAX package
+    (XLA) flushes to zero, so such a sample splits evenly; the port's
+    weights equal the JAX package's there too."""
+    pairs, truth = case1_da
+    rng = np.random.default_rng(5)
+    for ours, theirs in pairs:
+        x = _near_truth(ours, truth, rng, n=500, spread=spread)
+        cols, start = {}, 0
+        for v in ours.vars:
+            cols[str(v.name)] = x[:, start:start + v.dim]
+            start += v.dim
+        got = ours.posterior_weights(
+            {v: torch.as_tensor(cols[str(v.name)]) for v in ours.vars})
+        ref = theirs.posterior_weights(
+            {v: cols[str(v.name)] for v in theirs.vars})
+        np.testing.assert_allclose(got, ref, **TOL)
+
+
 NULL_LINE = ("BinaryFactorWithNullHypo Observer X1 Observed L1 Weights 0.8 "
              "0.2 Binary SE2R2RangeGaussianLikelihoodFactor Observation 5.0 "
              "Sigma 0.5 NullSigmaScale 10.0")

@@ -119,6 +119,37 @@ def test_multihost_dryrun_passes_its_gates_on_the_cpu(tmp_path):
     assert sorted(os.listdir(tmp_path)) == ["multihost.json"]
 
 
+def test_chip_smoke_keeps_at_most_its_limit_of_children(tmp_path):
+    """``chip_smoke.start_children``: five short children with a limit of
+    two run at most two at once, at ``CHILD_NICENESS`` below this process,
+    all start in order, and a stopped queue starts no more."""
+    import chip_smoke
+    stamp = str(tmp_path / "{}")
+    prog = ("import json, os, sys, time; open({!r}.format(sys.argv[1]), "
+            "'w').write(repr(time.time())); time.sleep(0.5); "
+            "open({!r}.format(sys.argv[1]), 'a').write(' ' + "
+            "repr(time.time()) + ' ' + str(os.nice(0))); "
+            "json.dump({{}}, open(sys.argv[-1], 'w'))")
+    phases = [(f"c{i}", [sys.executable, "-c", prog.format(stamp, stamp),
+                         f"c{i}"]) for i in range(5)]
+    children, starter = chip_smoke.start_children(phases, str(tmp_path), 2)
+    starter.join()
+    assert [c["label"] for c in children] == [f"c{i}" for i in range(5)]
+    assert all(c["proc"].wait() == 0 for c in children)
+    spans = [tuple(map(float, (tmp_path / f"c{i}").read_text().split()))
+             for i in range(5)]
+    for t0, _, _ in spans:
+        assert sum(a <= t0 < b for a, b, _ in spans) <= 2
+    # each child below this process's CPU priority
+    assert all(n >= os.nice(0) + chip_smoke.CHILD_NICENESS
+               or n == 19 for _, _, n in spans)
+    children, starter = chip_smoke.start_children(phases, str(tmp_path), 1)
+    starter.stop.set()
+    starter.join()
+    chip_smoke.stop_children(children)
+    assert len(children) <= 1
+
+
 def test_chip_smoke_runs_a_dryrun_as_a_child(tmp_path, capsys):
     """``chip_smoke.py``'s side-by-side machinery on the CPU: phase 25's
     dry run (at ``--fast`` on the CPU) started as a child process, joined,
@@ -134,12 +165,13 @@ def test_chip_smoke_runs_a_dryrun_as_a_child(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "# [phase 25 multihost] replication gate" in out
     assert "phase 25 multihost: child exited 0; joined" in out
+    runners = ["manhattan g16 pose_first", "phase 28 plaza family",
+               "phase 29 random_4x4", "phase 30 manhattan_plaza"]
     assert [label for label, _ in chip_smoke.child_phases(True)] == \
-        ["phase 25 multihost", "phase 26 multichip 4", "plaza1_ada0.2",
-         "manhattan g16 pose_first"]
+        ["phase 25 multihost", "phase 26 multichip 4", "plaza1_ada0.2"] + \
+        runners
     assert [label for label, _ in chip_smoke.child_phases(False)] == \
-        ["phase 25 multihost", "phase 26 multichip 4",
-         "manhattan g16 pose_first"]
+        ["phase 25 multihost", "phase 26 multichip 4"] + runners
     bad = chip_smoke.start_child("phase 26 multichip 4",
                                  chip_smoke.DRYRUN + ["nosuch"],
                                  str(tmp_path))

@@ -208,9 +208,10 @@ def test_chip_smoke_paths_run_on_cpu_at_small_size():
     Laplace MAP and the MAP's product timing; three Manhattan g8 steps."""
     small = dict(local_sample_num=200, flow_iterations=30,
                  posterior_sample_num=300)
-    steps, samples, truth, solver = chip_smoke.solve_plaza("cpu", steps=1,
-                                                           **small)
+    _, steps, samples, truth, _, solver, launches = chip_smoke.plaza_prefix(
+        "plaza1", 1, "cpu", **{**chip_smoke.PLAZA_ARGS, **small})
     assert steps[0]["trained"] == 4 and steps[0]["launches"] == 0
+    assert launches == 0 and not solver._args.mode_repair
     worst, rmse = chip_smoke.translation_errors(samples, truth)
     assert np.isfinite([worst, rmse]).all() and len(samples) == 9
     assert chip_smoke.fused_vs_per_clique(solver)[0] == 0.0
@@ -243,20 +244,20 @@ def test_chip_smoke_paths_run_on_cpu_at_small_size():
     assert sorted(weights) == sorted(chip_smoke.DA_TRUE)
     assert all(abs(sum(w.values()) - 1.0) < 1e-9 for w in weights.values())
     assert chip_smoke.fused_vs_per_clique(solver)[0] == 0.0
-    steps, per_step, truth, mixtures, solver = chip_smoke.solve_plaza_ada(
-        "cpu", steps=2, **small)
-    assert [len(m) for m in mixtures] == [0, 1]
-    count, mean_w, resolved = chip_smoke.hypo_snapshot(mixtures[1],
-                                                       per_step[1], truth)
-    assert count == 1 and 0.0 <= resolved <= 1.0 and 0.0 < mean_w < 1.0
-    assert np.isfinite(chip_smoke.translation_errors(per_step[1],
-                                                     truth)).all()
+    result, steps, samples, truth, floor, solver, _ = \
+        chip_smoke.plaza_prefix("plaza1_ada0.2", 2, "cpu",
+                                **{**chip_smoke.PLAZA_ADA_ARGS, **small})
+    assert solver._args.mode_repair and len(steps) == 2
+    snap = result["hypo_curve"][-1]
+    assert snap["step"] == 1 and snap["n"] == 1
+    assert 0.0 <= snap["resolved_frac"] <= 1.0
+    assert 0.0 < snap["mean_true_weight"] < 1.0
+    assert np.isfinite(chip_smoke.translation_errors(samples, truth)).all()
     assert chip_smoke.fused_vs_per_clique(solver)[0] == 0.0
     # the MAP floors: a prefix's floor and its divergence gate, the full
     # g16 floor against the JAX figure's gate, case1's Laplace MAP
     from nfisam_tpu_torch.solver import (GaussNewtonMAP,
                                          IncrementalGaussNewtonMAP)
-    floor = chip_smoke.prefix_floor(chip_smoke.PLAZA_ADA_FG, 1, "cpu")
     assert floor["iters"] >= 1 and 0.0 < floor["rmse"] < floor["max"]
     bound = max(3.0 * chip_smoke.JAX_PREFIX_FLOOR_MAX["plaza1_ada0.2"],
                 15.0)
