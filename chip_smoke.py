@@ -16,17 +16,20 @@ of JAX or of the JAX package, and exits non-zero if any phase fails:
 3. kernel vs plain: each case against the plain PyTorch version on the
    card, through the kernel ``kernel_variant`` names (the solver's shapes
    and edge cases, the 128 bucket, the JAX tests' shapes, the flow
-   options' shapes and the corners of the generic kernel's plan: the 256
+   options' shapes, the utilization profile's n=262144 chain draw, and
+   the corners of the generic kernel's plan: the 256
    bucket, h and K above 32, d=1, an odd h*d, n=999, a ring of weight
    slots), the generic kernel against the specialised one on the same
    inputs at (16, 8, 9), then both kernels timed with CUDA events at the
    main path's shapes, at d=32, 64 and 128, with every column pinned, and
    the generic kernel at ``--hidden 16``, at (16, 8, 9), at
-   ``pad_dim_multiple=4``'s (12, 8, 9) n=2000 and at the 256 bucket: a
-   call as the host sees it (the kernel lines' ``ms``), and the kernel's
-   device time alone; then the masked inverse's gradient (the kernel's
-   forward, the implicit-function VJP) against autograd through the plain
-   inverse at n=1000 and n=25, within 1e-4;
+   ``pad_dim_multiple=4``'s (12, 8, 9) n=2000 and at the 256 bucket, and
+   the specialised kernel at the utilization profile's largest batch
+   (n=262144, every dim inverted): a call as the host sees it (the kernel
+   lines' ``ms``), and the kernel's device time alone; then the masked
+   inverse's gradient (the kernel's forward, the implicit-function VJP)
+   against autograd through the plain inverse at n=1000 and n=25, within
+   1e-4;
 4. case1 by the sequential ``NFiSAM`` (6 poses, 2 landmarks, 6 steps)
    at the journal configuration (2000 training samples per clique, K=9,
    hidden 8, lr 0.025, <= 2000 Adam iterations with the w=25/tol=0.04
@@ -66,11 +69,14 @@ of JAX or of the JAX package, and exits non-zero if any phase fails:
    contradicting update; off, the log is empty and the separator-only
    cliques keep their models;
 10. case1_da (case1 with its 4 ranges as two-way ambiguous data
-   associations) by ``ParallelNFiSAM`` at ``scripts/case1_da_run.py``'s
-   configuration (one pose a step, 2000 training samples, <= 2000
-   iterations, K=9, lr 0.025, 1000 posterior draws, mode repair on) for
-   seeds 0-2; gates per seed: every pose's posterior-mean error < 3 m and
-   the posterior weight on X1->L1 and on X4->L2 > 0.7;
+   associations) through the case1_da runner
+   (``nfisam_tpu_torch.scripts.case1_da_run``: ``ParallelNFiSAM`` at
+   ``scripts/case1_da_run.py``'s configuration, one pose a step, 2000
+   training samples, <= 2000 iterations, K=9, lr 0.025, 1000 posterior
+   draws, mode repair on, through the run harness, the hypothesis weights
+   read back from the run directory) for seeds 0-2; gates per seed: every
+   pose's posterior-mean error < 3 m and the posterior weight on X1->L1
+   and on X4->L2 > 0.7;
 11. plaza1_ada0.2's first 5 incremental steps (5 poses a step) through
    the plaza runner with mode repair on; the runner's DA snapshots (the
    true-association weight and the resolved fraction, at steps 0 and 4)
@@ -214,20 +220,31 @@ of JAX or of the JAX package, and exits non-zero if any phase fails:
    the truth where it applies, translation RMSE <= 2x the JAX package's
    CPU worst over seeds 0-2 at the prefix, finite samples, the fused pass
    equal to the walk, launches, and the run directory's files those of
-   the JAX package's harness without the plots.
+   the JAX package's harness without the plots;
+31. in one child: the case1_da runner's oracle, dynamic nested sampling
+   over the whole case1_da graph at the JAX script's arguments (1000 live
+   points, 3 batches, key [0, 7]) and each mixture's posterior weights on
+   its samples; then the lawnmower_4x4 runner
+   (``nfisam_tpu_torch.scripts.manhattan_run``) in its steady pass at seed
+   1 (16 steps, ``scripts/manhattan_run.py``'s configuration); gates: the
+   oracle's logz within max(3.5 logzerr, 0.35) of the mean of the JAX
+   script's own oracle on the CPU over keys [0-2, 7], its weight on each
+   true association at least the JAX CPU worst less 0.05; the pass's
+   translation RMSE <= 1.25x the JAX script's CPU worst over seeds 1-5,
+   finite samples, the fused pass equal to the walk, launches.
 
-Phases 25-30 and 11 (plaza1_ada0.2) run in child processes, started
+Phases 25-31 and 11 (plaza1_ada0.2) run in child processes, started
 after the kernel checks (which are timed alone on the card) and joined
 before step 14's fused-pass checks, where the host has at least
 ``PARALLEL_MIN_CORES`` usable cores and the card is in the ``Default``
-compute mode; otherwise phase 11 runs in this process and phases 25-30
+compute mode; otherwise phase 11 runs in this process and phases 25-31
 one after another after phase 24.  The host's core counts and the
 compute mode are printed first.  The children's launched shapes join
 this process's for the final check.
 
 Each solve's kernel launches are counted from 0 just before it and read
 just after; the specialised kernel line's ``launches`` are
-lawnmower_4x4's (18) and phases 27-30's, the generic kernel line's phase
+lawnmower_4x4's (18) and phases 27-31's, the generic kernel line's phase
 23's seed-1 solve through the command line; the phase-22 case1 solve's
 are printed and must be > 0.  The output ends with one ``{"kernels":
 [...]}`` JSON line (both kernels), the card's name and power limit, and
@@ -250,7 +267,9 @@ import time
 import numpy as np
 import torch
 
+from nfisam_tpu_torch.scripts import case1_da_run as cdr
 from nfisam_tpu_torch.scripts import manhattan_plaza_run as mpr
+from nfisam_tpu_torch.scripts import manhattan_run as mr
 from nfisam_tpu_torch.scripts import plaza_family_run as pfr
 from nfisam_tpu_torch.scripts import random_4x4_sweep as r44
 from nfisam_tpu_torch.scripts.manhattan_scale_run import (
@@ -320,19 +339,31 @@ REPAIR_HALF_PLANE = 0.9
 # the separator trap's poses (the truth; L1 at (4, 0))
 SEPARATOR_TRUTH = {"X0": (0.0, 0.0), "X1": (0.0, 1.0), "X2": (0.0, 2.0),
                    "X3": (3.0, 2.0)}
-# case1_da at scripts/case1_da_run.py's configuration, gated as the JAX
-# package's tests/test_ada_e2e.py; the association of each observer by
-# the geometry of the ground truth
-CASE1_DA_FG = os.path.join(HERE, "data", "case1_da_factor_graph.fg")
-DA_ARGS = dict(posterior_sample_num=1000, local_sample_num=2000,
-               flow_iterations=2000, num_knots=9, learning_rate=0.025,
-               hidden_dim=8, elimination_method="pose_first",
-               mode_repair=True)
+# case1_da through its runner (scripts/case1_da_run.py's configuration,
+# mode repair on), gated as the JAX package's tests/test_ada_e2e.py; the
+# association of each observer by the geometry of the ground truth
+CASE1_DA_FG = cdr.DATA
 DA_SEEDS = (0, 1, 2)
 DA_POSE_GATE_M = 3.0
 DA_WEIGHT_GATE = 0.7
-DA_TRUE = {"X1": "L1", "X2": "L1", "X3": "L2", "X4": "L2"}
+DA_TRUE = cdr.TRUE_ASSOC
 DA_GATED = ("X1", "X4")
+# phase 31: the case1_da runner's oracle (key [0, 7]) and the lawnmower_4x4
+# runner's steady pass at seed MANHATTAN_RUN_SEED.  The JAX script's own
+# oracle on the CPU for the keys [s, 7], s = 0-2 (python
+# tests/test_torch_case1_da_run.py): the mean logz (-22.0906, -22.0959,
+# -22.1617) and each true association's worst weight; the gates: logz
+# within max(LOGZ_ERR_FACTOR x logzerr, LOGZ_FLOOR) of that mean, each
+# weight >= the worst less DA_ORACLE_WEIGHT_MARGIN
+JAX_DA_ORACLE_LOGZ = -22.116073151472325
+JAX_DA_ORACLE_WORST = {"X1": 0.9999999980915593, "X2": 0.9724571544320356,
+                       "X3": 0.9703278001759651, "X4": 0.9999999988456485}
+DA_ORACLE_WEIGHT_MARGIN = 0.05
+# the JAX script's steady runs for seeds 1-5 on the CPU (python
+# tests/test_torch_manhattan_run.py): translation RMSE 4.152, 3.972,
+# 2.993, 5.257, 3.704 m; the gate: <= LAWNMOWER_GATE_FACTOR x the worst
+MANHATTAN_RUN_SEED = 1
+JAX_MANHATTAN_RUN_WORST = 5.257
 # the JAX package's weights on the true association, taken on a TPU
 # (BENCHMARKS.md, case1_da section): a reference, not a port's number
 DA_TPU_WEIGHTS = {"X1": 0.996, "X2": 0.875, "X3": 0.817, "X4": 0.991}
@@ -853,45 +884,27 @@ def repair_gates(solver, samples) -> tuple:
             float(np.mean(samples["L1"][:, 0] > 0)))
 
 
-def mixtures_of(batches) -> list:
-    """The k-way mixture factors of a batch stream, in arrival order."""
+def solve_case1_da(seed: int, device, case_dir: str, **overrides):
+    """One case1_da solve through the case1_da runner (``run_incrementally``
+    and the hypothesis weights read back from its run directory).  Returns
+    (per-step timings read back, last step's host samples and the ground
+    truth by name, observer -> {candidate: final weight}, the solver, its
+    kernel launches)."""
     from nfisam_tpu_torch.factors import BinaryFactorMixture
-    return [f for _, fs in batches for f in fs
-            if isinstance(f, BinaryFactorMixture)]
 
-
-def posterior_weights(factor, samples) -> np.ndarray:
-    """A mixture's posterior hypothesis weights on host samples by name."""
-    return factor.posterior_weights(
-        {v: samples[str(v.name)] for v in factor.vars})
-
-
-def solve_case1_da(seed: int, device, **overrides):
-    """One incremental case1_da solve (one pose a step) by
-    ``ParallelNFiSAM``.  Returns (per-step timings, last step's host
-    samples, ground truth by name, the DA factors, solver)."""
-    from nfisam_tpu_torch.io import (graph_file_parser,
-                                     group_nodes_factors_incrementally)
-    from nfisam_tpu_torch.parallel import ParallelNFiSAM
-    from nfisam_tpu_torch.solver import NFiSAMArgs
-
-    nodes, truth, factors = graph_file_parser(CASE1_DA_FG)
-    batches = group_nodes_factors_incrementally(nodes, factors,
-                                                incremental_step=1)
-    solver = ParallelNFiSAM(
-        NFiSAMArgs(**{**DA_ARGS, **overrides, "seed": seed}), device=device)
-    timings, per_step = run_incremental(solver, batches, device)
-    return (timings, per_step[-1],
+    run_dir, solver, batches, _, launches = cdr.solve(
+        case_dir, device, seed, verbose=False, **overrides)
+    _, truth, factors, _ = cdr.load_graph()
+    per_step = cdr.read_hypoweights(run_dir, len(batches))
+    candidates = {str(f.observer_var.name): [str(v.name)
+                                             for v in f.observed_vars]
+                  for f in factors if isinstance(f, BinaryFactorMixture)}
+    weights = {obs: dict(zip(candidates[obs], ws))
+               for obs, ws in per_step[max(per_step)].items()}
+    return (cdr.step_rows(run_dir, len(batches)),
+            host_samples(solver._samples),
             {str(v.name): np.asarray(t) for v, t in truth.items()},
-            mixtures_of(batches), solver)
-
-
-def da_weights(mixtures, samples) -> dict:
-    """Observer name -> {candidate name: posterior weight}."""
-    return {str(f.observer_var.name):
-            dict(zip((str(v.name) for v in f.observed_vars),
-                     posterior_weights(f, samples).tolist()))
-            for f in mixtures}
+            weights, solver, launches)
 
 
 def fused_vs_per_clique(solver):
@@ -1147,6 +1160,9 @@ KERNEL_CASES = [
     ("generic d64 h48 K9 ring", 500, 64, 48, 9, 1, 3, (10,)),
     ("generic d12 h8 K8", 1000, 12, 8, 8, 1, 3, (4,)),
     ("generic d24 h16 K9", 1000, 24, 16, 9, 1, 4, (20,)),
+    # the utilization profile's fused chain at its largest batch
+    # (``profile_utilization.PASS_N``): every dim inverted
+    ("chain n=262144 sep0", 262144, 16, 8, 9, 1, 0, ()),
 ]
 # the shapes the timings are taken at: a case1 root clique's posterior
 # draw (n=1000) and a separator-factor draw in simulation (n=2000), d=16,
@@ -1158,7 +1174,8 @@ KERNEL_CASES = [
 # ``--hidden 16`` (its line's), the generic kernel at the first case's
 # shape and inputs (``FORCED_GENERIC``: what run-time shapes cost beside
 # the specialised kernel), at ``pad_dim_multiple=4``'s (12, 8, 9) n=2000
-# draw, and at the 256 bucket
+# draw, and at the 256 bucket; then the utilization profile's fused chain
+# at its largest batch (n=262144, every dim inverted)
 TIMED_CASES = [("timed n=1000 sep2", 1000, 16, 8, 9, 1, 2, ()),
                ("timed K6 n=1000 sep2", 1000, 16, 8, 6, 1, 2, ()),
                ("timed n=2000 sep2", 2000, 16, 8, 9, 1, 2, ()),
@@ -1172,7 +1189,8 @@ TIMED_CASES = [("timed n=1000 sep2", 1000, 16, 8, 9, 1, 2, ()),
                ("timed generic d16 h8 n=1000 sep2", 1000, 16, 8, 9, 1, 2, ()),
                ("timed generic d12 h8 n=2000 sep2", 2000, 12, 8, 9, 1, 2, ()),
                ("timed generic d256 h128 n=1000 sep2", 1000, 256, 128, 9, 1,
-                2, ())]
+                2, ()),
+               ("timed chain n=262144 sep0", 262144, 16, 8, 9, 1, 0, ())]
 GENERIC_TIMED = "timed generic d16 h16 n=1000 sep2"
 # timed cases launched through the generic kernel at a specialised shape
 FORCED_GENERIC = {"timed generic d16 h8 n=1000 sep2"}
@@ -1747,43 +1765,53 @@ def separator_repair_phase(device):
 
 
 def case1_da_phase(device):
-    """case1_da for every seed, each solve's kernel launches counted, then
-    the per-seed gates.  Returns the solvers."""
+    """case1_da for every seed through its runner, each solve's kernel
+    launches counted from 0 just before it, then the per-seed gates.
+    Returns the solvers."""
     from nfisam_tpu_torch.flows import ar_inverse_kernel
 
     solvers = []
-    for seed in DA_SEEDS:
-        ar_inverse_kernel.reset_launches()
-        steps, samples, truth, mixtures, solver = solve_case1_da(seed,
-                                                                 device)
-        launches = ar_inverse_kernel.launches
-        log(f"case1_da ParallelNFiSAM seed {seed}: total "
-            f"{sum(st['s'] for st in steps):.3f} s, ar_inverse launches "
-            f"{launches}; repair log {solver.mode_repair_log}; bucket log "
-            f"{solver.bucket_log}")
-        log_steps(steps)
-        check_finite(samples, f"case1_da seed {seed}")
-        if launches == 0:
-            raise SystemExit(f"the case1_da solve (seed {seed}) never "
-                             f"launched the ar_inverse kernel")
-        pose_err = {name: float(np.linalg.norm(
-            samples[name][:, :2].mean(0) - truth[name][:2]))
-            for name in samples if name.startswith("X")}
-        weights = da_weights(mixtures, samples)
-        log(f"case1_da seed {seed}: pose posterior-mean errors (m) "
-            f"{ {k: round(v, 4) for k, v in sorted(pose_err.items())} } "
-            f"(< {DA_POSE_GATE_M})")
-        for obs, lmk in DA_TRUE.items():
-            log(f"case1_da seed {seed}: {obs}->{lmk} weight "
-                f"{weights[obs][lmk]:.4f} (all {weights[obs]}); the JAX "
-                f"package on a TPU: {DA_TPU_WEIGHTS[obs]}"
-                f"{f' (gate > {DA_WEIGHT_GATE})' if obs in DA_GATED else ''}")
-        if max(pose_err.values()) >= DA_POSE_GATE_M:
-            raise SystemExit(f"case1_da seed {seed}: pose-error gate failed")
-        if not all(weights[obs][DA_TRUE[obs]] > DA_WEIGHT_GATE
-                   for obs in DA_GATED):
-            raise SystemExit(f"case1_da seed {seed}: weight gate failed")
-        solvers.append(solver)
+    case_dir = tempfile.mkdtemp(prefix="case1_da_")
+    try:
+        for seed in DA_SEEDS:
+            ar_inverse_kernel.reset_launches()
+            steps, samples, truth, weights, solver, _ = \
+                solve_case1_da(seed, device, case_dir)
+            launches = ar_inverse_kernel.launches
+            log(f"case1_da ParallelNFiSAM seed {seed} (the case1_da runner):"
+                f" total {sum(st['s'] for st in steps):.3f} s, ar_inverse "
+                f"launches {launches}; repair log {solver.mode_repair_log};"
+                f" bucket log {solver.bucket_log}")
+            for i, st in enumerate(steps):
+                log(f"  step {i}: {st['s']:.3f} s (surgery "
+                    f"{st['surgery_s']:.4f}, fit {st['fit_s']:.3f}, "
+                    f"posterior {st['posterior_s']:.4f}); cliques trained "
+                    f"{st['trained']}; Adam iterations {st['iters']}")
+            check_finite(samples, f"case1_da seed {seed}")
+            if launches == 0:
+                raise SystemExit(f"the case1_da solve (seed {seed}) never "
+                                 f"launched the ar_inverse kernel")
+            pose_err = {name: float(np.linalg.norm(
+                samples[name][:, :2].mean(0) - truth[name][:2]))
+                for name in samples if name.startswith("X")}
+            log(f"case1_da seed {seed}: pose posterior-mean errors (m) "
+                f"{ {k: round(v, 4) for k, v in sorted(pose_err.items())} } "
+                f"(< {DA_POSE_GATE_M})")
+            for obs, lmk in DA_TRUE.items():
+                gated = f" (gate > {DA_WEIGHT_GATE})" if obs in DA_GATED \
+                    else ""
+                log(f"case1_da seed {seed}: {obs}->{lmk} weight "
+                    f"{weights[obs][lmk]:.4f} (all {weights[obs]}); the JAX "
+                    f"package on a TPU: {DA_TPU_WEIGHTS[obs]}{gated}")
+            if max(pose_err.values()) >= DA_POSE_GATE_M:
+                raise SystemExit(f"case1_da seed {seed}: pose-error gate "
+                                 f"failed")
+            if not all(weights[obs][DA_TRUE[obs]] > DA_WEIGHT_GATE
+                       for obs in DA_GATED):
+                raise SystemExit(f"case1_da seed {seed}: weight gate failed")
+            solvers.append(solver)
+    finally:
+        shutil.rmtree(case_dir, ignore_errors=True)
     return solvers
 
 
@@ -2953,7 +2981,7 @@ def r2_odometry_phase(device) -> None:
 # phases in child processes, side by side with the main process's
 # --------------------------------------------------------------------------
 # a host with at least this many usable cores and the card in the
-# ``Default`` compute mode runs plaza1_ada0.2 and phases 25-30 in child
+# ``Default`` compute mode runs plaza1_ada0.2 and phases 25-31 in child
 # processes beside the main process's phases, at most MAX_CHILDREN at
 # once and at CHILD_NICENESS (all seven at once slowed the main path:
 # PERF.md §5); else one after another
@@ -3038,8 +3066,8 @@ def child_phases(with_plaza_ada: bool) -> list:
     ``nfisam_tpu_torch.parallel``: 2 ranks chunking buckets, 4 ranks on a
     (clique, data) mesh, all on this card), ``with_plaza_ada`` of
     plaza1_ada0.2, and of the runners' phases: the headline Manhattan
-    prefix (27), the plaza family (28), random_4x4 (29) and manhattan_plaza
-    (30)."""
+    prefix (27), the plaza family (28), random_4x4 (29), manhattan_plaza
+    (30) and the case1_da oracle with the lawnmower_4x4 runner (31)."""
     phases = [("phase 25 multihost", DRYRUN + ["multihost"]),
               ("phase 26 multichip 4", DRYRUN + ["multichip", "4"])]
     this = [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--child"]
@@ -3377,8 +3405,88 @@ def manhattan_plaza_report(r: dict, steps: int = MANHATTAN_PLAZA_STEPS
         raise SystemExit("manhattan_plaza JAX-parity gate failed")
 
 
+def oracle_lawnmower_readings(device, live_points: int = cdr.ORACLE_LIVE,
+                              rehearse: bool = False) -> dict:
+    """Phase 31: the case1_da runner's oracle (``oracle_weights``, key
+    [0, 7], ``live_points`` live points), then the lawnmower_4x4 runner's
+    steady pass at ``MANHATTAN_RUN_SEED`` (``run_once``; with
+    ``rehearse``, its ``--rehearse`` sizes): the oracle's weights on the true
+    associations, its summary and seconds; the pass's record, its
+    translation RMSE unrounded, and the kernel readings on its final state
+    (JSON-able)."""
+    from nfisam_tpu_torch.factors import BinaryFactorMixture
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+
+    ar_inverse_kernel.launched_shapes.clear()
+    nodes, _, factors, _ = cdr.load_graph()
+    weights, summ, oracle_s = cdr.oracle_weights(nodes, factors, device, 0,
+                                                 live_points)
+    true_w = {}
+    for f in factors:
+        if isinstance(f, BinaryFactorMixture):
+            obs = str(f.observer_var.name)
+            names = [str(v.name) for v in f.observed_vars]
+            true_w[obs] = weights[obs][names.index(DA_TRUE[obs])]
+    ar_inverse_kernel.reset_launches()
+    t0 = time.perf_counter()
+    record, samples, solver = mr.run_once(
+        f"seed{MANHATTAN_RUN_SEED}",
+        mr.parse_args([str(MANHATTAN_RUN_SEED)]
+                      + (["--rehearse"] if rehearse else [])), device)
+    steady_s = time.perf_counter() - t0
+    truth, _ = mr.load_stream()
+    return _child_shapes({
+        "oracle": {"true_weights": true_w, "weights": weights,
+                   "summary": summ, "s": oracle_s},
+        "steady": {k: v for k, v in record.items() if k != "step_times"},
+        "steady_s": steady_s,
+        "trans_rmse": translation_errors(samples, {
+            str(v.name): np.asarray(t) for v, t in truth.items()})[1],
+        **_kernel_readings(solver, samples)})
+
+
+def oracle_lawnmower_report(r: dict) -> None:
+    """Phase 31's readings and gates: the oracle's logz within max(3.5
+    logzerr, 0.35) of the JAX script's CPU mean, its weight on each true
+    association >= the JAX CPU worst less 0.05; the steady pass's
+    translation RMSE <= 1.25x the JAX script's CPU worst over seeds 1-5;
+    the kernel gates."""
+    o, st = r["oracle"], r["steady"]
+    summ = o["summary"]
+    tol = max(LOGZ_ERR_FACTOR * summ["logzerr"], LOGZ_FLOOR)
+    log(f"case1_da oracle (dynamic nested sampling, key [0, 7], "
+        f"{summ['nlive']} live, {cdr.ORACLE_BATCHES} batches): {o['s']:.1f} "
+        f"s, niter {summ['niter']}, ncall {summ['ncall']}, logz "
+        f"{summ['logz']:.4f} +- {summ['logzerr']:.4f} (within {tol:.3f} of "
+        f"the JAX script's CPU mean {JAX_DA_ORACLE_LOGZ:.4f}); weights "
+        f"{o['weights']}")
+    failed = not abs(summ["logz"] - JAX_DA_ORACLE_LOGZ) <= tol
+    for obs, w in o["true_weights"].items():
+        bound = JAX_DA_ORACLE_WORST[obs] - DA_ORACLE_WEIGHT_MARGIN
+        log(f"case1_da oracle: {obs}->{DA_TRUE[obs]} weight {w:.4f} (>= "
+            f"{bound:.4f}, the JAX CPU worst less {DA_ORACLE_WEIGHT_MARGIN})")
+        failed |= not w >= bound
+    if failed:
+        raise SystemExit("phase 31: the case1_da oracle's gate failed")
+    bound = LAWNMOWER_GATE_FACTOR * JAX_MANHATTAN_RUN_WORST
+    log(f"manhattan_run steady seed {MANHATTAN_RUN_SEED} ({st['n_steps']} "
+        f"steps): {r['steady_s']:.1f} s (total_s {st['total_s']}, surgery "
+        f"{st['surgery_s']}, fit {st['fit_s']}, posterior "
+        f"{st['posterior_s']}), median step {st['median_step_s']} s, "
+        f"posterior_samples_per_sec_per_chip "
+        f"{st['posterior_samples_per_sec_per_chip']}, landmark RMSE "
+        f"{st['landmark_rmse']} m; launches {r['launches']}")
+    log(f"manhattan_run gate: translation RMSE {r['trans_rmse']:.4f} m (<= "
+        f"{LAWNMOWER_GATE_FACTOR} x the JAX script's worst over seeds 1-5 "
+        f"on the CPU {JAX_MANHATTAN_RUN_WORST} = {bound:.4f}); fused pass vs "
+        f"walk {r['fused_vs_walk']:.3e}")
+    _kernel_gates("manhattan_run", r)
+    if not r["trans_rmse"] <= bound:
+        raise SystemExit("phase 31: the manhattan_run gate failed")
+
+
 def runner_child(readings_fn, result: str) -> int:
-    """A runner's phase (27-30) as a child process: the kernels built,
+    """A runner's phase (27-31) as a child process: the kernels built,
     then ``readings_fn(device)``'s readings and its seconds to
     ``result``."""
     from nfisam_tpu_torch.utils.cuda_build import build_all_kernels
@@ -3405,6 +3513,8 @@ RUNNER_CHILDREN = {
                    random_4x4_report),
     "manhattan_plaza": ("phase 30 manhattan_plaza", manhattan_plaza_readings,
                         manhattan_plaza_report),
+    "oracle_lawnmower": ("phase 31 oracle and lawnmower",
+                         oracle_lawnmower_readings, oracle_lawnmower_report),
 }
 
 
@@ -3419,7 +3529,7 @@ def stop_children(children: list) -> None:
 def report_children(children: list) -> int:
     """Join the children, print their readings and fail on any gate: the
     dry runs gate themselves (a launch in every rank included); plaza1_
-    ada0.2's fused pass and the runners' phases' gates (27-30) are held
+    ada0.2's fused pass and the runners' phases' gates (27-31) are held
     here, and those children's launched shapes join this process's for
     ``check_launched_shapes``.  Returns the runners' phases' launches of
     the specialised kernel (0 if none was among the children)."""
@@ -3487,7 +3597,7 @@ def main() -> int:
     log(f"len(os.sched_getaffinity(0)) {usable}")
     log(f"compute mode {compute_mode}")
     side_by_side = usable >= PARALLEL_MIN_CORES and compute_mode == "Default"
-    log(f"plaza1_ada0.2 and phases 25-30: "
+    log(f"plaza1_ada0.2 and phases 25-31: "
         f"{'side by side, in child processes' if side_by_side else 'one after another'}"
         f" (needs >= {PARALLEL_MIN_CORES} usable cores and the Default "
         f"compute mode)")

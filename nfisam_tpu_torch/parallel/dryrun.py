@@ -291,9 +291,12 @@ def worker(opts) -> None:
 # --------------------------------------------------------------------------
 # the launcher
 # --------------------------------------------------------------------------
-def run_processes(argvs, tmp: str) -> None:
-    """Start one process for each entry of ``argvs`` (this module with
-    it), all at once, each's output to a file in ``tmp``; raise SystemExit
+def run_processes(argvs, tmp: str,
+                  module: str = "nfisam_tpu_torch.parallel.dryrun",
+                  timeout_s: float = TIMEOUT_S) -> None:
+    """Start one process for each entry of ``argvs`` (``module`` with it),
+    all at once, each's output to ``proc{i}.log`` in ``tmp``; stop them all
+    once one fails or ``timeout_s`` has passed, and then raise SystemExit
     with the tail of a failed one's output."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -303,11 +306,10 @@ def run_processes(argvs, tmp: str) -> None:
     for i, argv in enumerate(argvs):
         log = open(os.path.join(tmp, f"proc{i}.log"), "w")
         procs.append((argv, log, subprocess.Popen(
-            [sys.executable, "-m", "nfisam_tpu_torch.parallel.dryrun"] +
-            argv, env=env, stdout=log, stderr=subprocess.STDOUT)))
+            [sys.executable, "-m", module] + argv, env=env, stdout=log, stderr=subprocess.STDOUT)))
     # a rank that fails leaves the others waiting in a collective: stop
     # every process once one fails or the time is up
-    deadline = time.monotonic() + TIMEOUT_S
+    deadline = time.monotonic() + timeout_s
     while any(p.poll() is None for _, _, p in procs):
         if time.monotonic() > deadline or \
                 any(p.poll() not in (None, 0) for _, _, p in procs):

@@ -22,7 +22,10 @@ draws them), the prefix gathered from the buffer by index,
 ``conditional_draw_core`` (the masked AR inverse: the CUDA kernel on a
 card), and the frontal columns written back.  Nothing in the pass reads a
 device value on the host.  On the same solver state and key stream it
-gives the per-clique walk's samples bit for bit.
+gives the per-clique walk's samples bit for bit.  ``pack_plan`` packs
+the per-clique arrays and ``run_plan`` is the pass itself, so that a
+synthetic chain of cliques (the utilization profile's) runs the same
+code as the solver's tree.
 
 With the solver's ``sample_mesh`` of several data ranks and a sample
 count that splits evenly over them, each rank computes only its
@@ -43,6 +46,7 @@ run) is the next lever, to be measured first.
 from __future__ import annotations
 
 from collections.abc import Mapping
+from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -74,6 +78,76 @@ def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+@dataclass
+class FusedPlan:
+    """What the pass reads, packed once: each clique's model, first buffer
+    column and frontal width, in topological order; per clique (rows of
+    the (L, max dim) arrays on the device) its gather map into the buffer
+    (``D``, the zero column, where a prefix column is neither an
+    observation nor a separator), observation mask and values, inversion
+    mask, and ``lead``, its prefix width."""
+    models: List[CliqueFlowModel]
+    first: List[int]
+    frontal_dim: List[int]
+    lead: List[int]
+    src: torch.Tensor
+    omask: torch.Tensor
+    ovals: torch.Tensor
+    imask: torch.Tensor
+    D: int
+
+
+def pack_plan(specs, D: int, device) -> FusedPlan:
+    """A ``FusedPlan`` from per-clique specs (model, observations (c,),
+    separator columns (buffer column of each separator dim, in order),
+    first frontal column, frontal width), parents first, over ``D``
+    buffer columns."""
+    L, width = len(specs), max(s[0].dim for s in specs)
+    src = np.full((L, width), D, dtype=np.int64)
+    omask = np.zeros((L, width), dtype=bool)
+    ovals = np.zeros((L, width), dtype=np.float32)
+    imask = np.ones((L, width), dtype=bool)
+    lead = []
+    for i, (_, obs, sep_cols, _, _) in enumerate(specs):
+        c = len(obs)
+        omask[i, :c] = True
+        ovals[i, :c] = obs
+        src[i, c:c + len(sep_cols)] = sep_cols
+        c += len(sep_cols)
+        imask[i, :c] = False
+        lead.append(c)
+    src, omask, ovals, imask = (_to_device(a, device)
+                                for a in (src, omask, ovals, imask))
+    return FusedPlan([s[0] for s in specs], [s[3] for s in specs],
+                     [s[4] for s in specs], lead, src, omask, ovals, imask,
+                     D)
+
+
+@torch.no_grad()
+def run_plan(plan: FusedPlan, next_key, num_samples: int, device,
+             rows: slice = slice(None)) -> torch.Tensor:
+    """The pass itself: for each clique in order, the next key
+    (``next_key()``), the base draws, the prefix gathered from the buffer,
+    ``conditional_draw_core`` and the frontal columns written back.
+    Returns this rank's ``rows`` of the (n, D + 1) buffer."""
+    inverse_fn = _select_inverse_fn(device)
+    n_local = len(range(num_samples)[rows])
+    buffer = torch.zeros((n_local, plan.D + 1), dtype=torch.float32,
+                         device=device)
+    for i, model in enumerate(plan.models):
+        d, first, lead = model.dim, plan.first[i], plan.lead[i]
+        gen = torch_generator(next_key(), device)
+        z = model.base.sample(gen, num_samples, device)[rows]
+        prefix = torch.where(plan.omask[i, :d], plan.ovals[i, :d],
+                             buffer.index_select(1, plan.src[i, :d]))
+        x = conditional_draw_core(model.flow_params, model.mean, model.std,
+                                  model.circ_mask, z, prefix,
+                                  plan.imask[i, :d], model.cfg, inverse_fn)
+        buffer[:, first:first + plan.frontal_dim[i]] = \
+            x[:, lead:lead + plan.frontal_dim[i]]
+    return buffer
+
+
 @torch.no_grad()
 def fused_sample_posterior(solver, num_samples: int
                            ) -> Optional["LazySamples"]:
@@ -98,48 +172,20 @@ def fused_sample_posterior(solver, num_samples: int
             D += v.dim
         obs = np.asarray(solver._clique_true_obs[clique],
                          dtype=np.float32).reshape(-1)
-        specs.append((model, obs, separator_list, first, D - first))
-
-    zero_col = D
-    L, width = len(specs), max(s[0].dim for s in specs)
-    src = np.full((L, width), zero_col, dtype=np.int64)
-    omask = np.zeros((L, width), dtype=bool)
-    ovals = np.zeros((L, width), dtype=np.float32)
-    imask = np.ones((L, width), dtype=bool)
-    lead = []                # prefix width: observations + separator
-    for i, (_, obs, separator_list, _, _) in enumerate(specs):
-        c = len(obs)
-        omask[i, :c] = True
-        ovals[i, :c] = obs
-        for v in separator_list:
-            src[i, c:c + v.dim] = np.arange(col_of[v], col_of[v] + v.dim)
-            c += v.dim
-        imask[i, :c] = False
-        lead.append(c)
+        # parents come first, so every separator already has its columns
+        sep_cols = [c for v in separator_list
+                    for c in range(col_of[v], col_of[v] + v.dim)]
+        specs.append((model, obs, sep_cols, first, D - first))
 
     device = solver.device
-    src, omask, ovals, imask = (_to_device(a, device)
-                                for a in (src, omask, ovals, imask))
-    inverse_fn = _select_inverse_fn(device)
+    plan = pack_plan(specs, D, device)
     mesh = getattr(solver._args, "sample_mesh", None)
     rows = slice(None)
     if mesh is not None and mesh.shape["data"] > 1 and \
             num_samples % mesh.shape["data"] == 0:
         rows = mesh.rows(num_samples)
-    n_local = len(range(num_samples)[rows])
-    buffer = torch.zeros((n_local, D + 1), dtype=torch.float32,
-                         device=device)
-    for i, (model, _, _, first, frontal_dim) in enumerate(specs):
-        d = model.dim
-        gen = torch_generator(solver._next_key(), device)
-        z = model.base.sample(gen, num_samples, device)[rows]
-        prefix = torch.where(omask[i, :d], ovals[i, :d],
-                             buffer.index_select(1, src[i, :d]))
-        x = conditional_draw_core(model.flow_params, model.mean, model.std,
-                                  model.circ_mask, z, prefix, imask[i, :d],
-                                  model.cfg, inverse_fn)
-        buffer[:, first:first + frontal_dim] = \
-            x[:, lead[i]:lead[i] + frontal_dim]
+    buffer = run_plan(plan, solver._next_key, num_samples, device, rows)
+    n_local = buffer.shape[0]
     if n_local != num_samples:
         from ..parallel.mesh import all_gather_rows
         buffer = all_gather_rows(buffer, mesh.group("data"))

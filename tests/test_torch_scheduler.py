@@ -15,6 +15,7 @@ the ground truth: the reference point for the port's plaza1 gate on the
 card."""
 import os
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -238,9 +239,9 @@ def test_chip_smoke_paths_run_on_cpu_at_small_size():
         assert sep_only and kept == [] and set(sep_only) < set(holding)
         assert all(np.isfinite(x).all() for x in samples.values())
         assert chip_smoke.fused_vs_per_clique(solver)[0] == 0.0
-    _, samples, truth, mixtures, solver = chip_smoke.solve_case1_da(
-        0, "cpu", **small)
-    weights = chip_smoke.da_weights(mixtures, samples)
+    with tempfile.TemporaryDirectory() as case_dir:
+        _, samples, truth, weights, solver, _ = chip_smoke.solve_case1_da(
+            0, "cpu", case_dir, **small)
     assert sorted(weights) == sorted(chip_smoke.DA_TRUE)
     assert all(abs(sum(w.values()) - 1.0) < 1e-9 for w in weights.values())
     assert chip_smoke.fused_vs_per_clique(solver)[0] == 0.0
