@@ -16,7 +16,7 @@ them.  Gates: both ranks trained non-empty, disjoint chunks; the ranks'
 moments agree within 1e-5; replication: the worst per-variable
 translation MMD against the same-seed single rank is < 0.05;
 independence: the worst range-posterior MMD against seed 4 is < max(2x
-the seed-5-vs-4 figure, 0.12).
+the seed-5-vs-4 figure, ``RANGE_MMD_TOL``).
 
 ``multichip N``: N ranks solve (a) case1 at the journal configuration on
 a (2, N/2) mesh and (b) 8 disjoint robot subproblems on a (4, N/4) mesh,
@@ -62,7 +62,12 @@ SEED = 3
 SINGLE_SEED = 4      # the independent single-rank reference
 VAR_SEED = 5         # its yardstick: seed 5 against seed 4
 MMD_TOL = 0.05
-RANGE_MMD_TOL = 0.12
+# the independence gate's floor: the largest worst range-posterior MMD
+# between two of the JAX package's own single-rank seeds at ``--fast`` on
+# the CPU (seeds 3-12, 45 pairs: median 0.2836, largest 0.5518; ``python
+# tests/test_torch_multihost.py independence-scatter``).  The JAX script's
+# 0.12 sat below the median of that spread.
+RANGE_MMD_TOL = 0.552
 MOMENT_TOL = 1e-5
 FULL = dict(flow_iterations=300, local_sample_num=600,
             posterior_sample_num=500)

@@ -1,2 +1,2 @@
 from .device import resolve_device
-from .keys import KeyStream, split_host, torch_generator
+from .keys import KeyStream, generator_seed, split_host, torch_generator

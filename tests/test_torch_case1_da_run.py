@@ -13,22 +13,43 @@ sampler's default at seed 0; without a card and without ``--device cpu``
 the runner exits 1.
 
 Run as a script, ``JAX_PLATFORMS=cpu python tests/test_torch_case1_da_run.py
-[seed ...]`` runs the JAX script's own oracle statements (dynamic nested
-sampling over the whole graph, 1000 live points, 3 batches) on the CPU
-with the key ``[seed, 7]`` for seeds 0-2 (or those given) and prints each
-run's logz, logzerr and weights on the true associations, their mean
-logz and each association's worst weight: the figures behind
+[JAX|port] [seed ...]`` runs the oracle (dynamic nested sampling over the
+whole graph, 1000 live points, 3 batches) on the CPU with the key
+``[seed, 7]`` for seeds 0-2 (or those given): the JAX script's own
+statements (``JAX``, the default, ~25 s a key) or the port's
+``oracle_weights`` (``port``, ~190 s a key on one thread: run keys side
+by side).  It prints each run's logz, logzerr and weights on the true
+associations, then the mean and standard deviation of logz and each
+association's worst weight: with ``JAX``, the figures behind
 ``chip_smoke.JAX_DA_ORACLE_LOGZ`` and ``JAX_DA_ORACLE_WORST``.  The
-port's oracle for the same keys on the card, beside them (on the CPU a
-``torch.Generator`` keeps only the low word of its seed, so these keys
-all draw what ``[0, 7]`` draws there)::
+port's oracle for the same keys on the card::
 
     python3 -c 'import torch
     from nfisam_tpu_torch.scripts import case1_da_run as c
     n, _, f, _ = c.load_graph()
-    for s in range(6):
+    for s in range(16):
         w, d, t = c.oracle_weights(n, f, torch.device("cuda"), s)
         print(c.oracle_key(s).tolist(), d["logz"], d["logzerr"], t, w)'
+
+Keys [s, 7], s = 0-15 (ROADMAP C8, closed as noise), logz by key:
+
+- JAX on the CPU: -22.0906 / -22.0959 / -22.1617 / -21.9687 / -21.9333 /
+  -22.2068 / -22.1499 / -22.0941 / -22.2042 / -22.0224 / -22.0857 /
+  -22.3558 / -22.3364 / -22.1916 / -21.9291 / -22.2134; mean -22.1275,
+  std 0.1264;
+- the port on the CPU: -22.2666 / -21.9189 / -22.3200 / -22.3416 /
+  -22.1250 / -22.3774 / -22.3366 / -22.0839 / -22.1226 / -22.4505 /
+  -22.1092 / -22.1959 / -22.2673 / -22.3982 / -22.0466 / -22.4283; mean
+  -22.2368, std 0.1553;
+- the port on an H100 (80GB HBM3, 700 W): -22.3169 / -22.2115 / -22.0508 /
+  -22.4095 / -22.1111 / -22.1128 / -22.2201 / -21.8130 / -22.2492 /
+  -22.5275 / -21.9956 / -22.1580 / -22.2535 / -22.1655 / -22.4759 /
+  -22.0021; mean -22.1921, std 0.1857.
+
+Welch t: port CPU - JAX -2.18, card - JAX -1.15, card - port CPU 0.74,
+each within 3 standard errors.  The weights on the true associations X2
+and X3: JAX 0.952-0.979, the port on the CPU 0.919-0.982, on the card
+0.964-0.983.
 """
 import json
 import os
@@ -266,19 +287,31 @@ def true_weight(weights: dict, factors, observer: str) -> float:
     return weights[observer][names.index(cdr.TRUE_ASSOC[observer])]
 
 
+def port_oracle(seed: int) -> tuple:
+    """The port's oracle (``cdr.oracle_weights``) on the CPU with the key
+    ``cdr.oracle_key(seed)``: (summary, unrounded weights by observer)."""
+    nodes, _, factors, _ = cdr.load_graph()
+    w, summ, _ = cdr.oracle_weights(nodes, factors, torch.device("cpu"),
+                                    seed)
+    return summ, w
+
+
 if __name__ == "__main__":
     import time
 
     import jax
     jax.config.update("jax_platforms", "cpu")
-    seeds = [int(a) for a in sys.argv[1:]] or [0, 1, 2]
+    args = sys.argv[1:]
+    arm = args.pop(0) if args[:1] in (["JAX"], ["port"]) else "JAX"
+    seeds = [int(a) for a in args] or [0, 1, 2]
+    oracle = jax_oracle if arm == "JAX" else port_oracle
     _, _, j_factors, _ = cdr.load_graph(j_parse, j_group)
     logz, worst = [], {}
     for seed in seeds:
         t0 = time.perf_counter()
-        summ, w = jax_oracle(seed)
+        summ, w = oracle(seed)
         true_w = {o: true_weight(w, j_factors, o) for o in cdr.TRUE_ASSOC}
-        print(f"JAX oracle, key {cdr.oracle_key(seed).tolist()}: logz "
+        print(f"{arm} oracle, key {cdr.oracle_key(seed).tolist()}: logz "
               f"{summ['logz']!r} logzerr {summ['logzerr']!r} niter "
               f"{summ['niter']} ncall {summ['ncall']}; weights on the true "
               f"associations {true_w}; {time.perf_counter() - t0:.1f} s",
@@ -286,5 +319,6 @@ if __name__ == "__main__":
         logz.append(summ["logz"])
         for o, x in true_w.items():
             worst[o] = min(worst.get(o, 1.0), x)
-    print(f"seeds {seeds}: mean logz {float(np.mean(logz))!r}; worst weight "
-          f"on each true association {worst}", flush=True)
+    print(f"{arm}, seeds {seeds}: mean logz {float(np.mean(logz))!r}, std "
+          f"{float(np.std(logz, ddof=1)) if len(logz) > 1 else 0.0!r}; "
+          f"worst weight on each true association {worst}", flush=True)

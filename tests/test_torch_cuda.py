@@ -74,6 +74,16 @@ def test_cuda_added_knot_counts_match_plain(cuda, d, h, K):
     np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), **TOL)
 
 
+def test_cuda_generator_seed_is_the_keys_64_bit_word(cuda):
+    """The card's generator is seeded with ``hi << 32 | lo`` whole, so
+    its Philox streams do not depend on the CPU's fold."""
+    from nfisam_tpu_torch.utils.keys import generator_seed, torch_generator
+    key = np.array([0x12345678, 0x9ABCDEF0], np.uint32)
+    assert torch_generator(key, cuda).initial_seed() == \
+        generator_seed(key, "cuda") == 0x12345678 << 32 | 0x9ABCDEF0
+    chip_smoke.check_generator_seed(cuda)
+
+
 def test_cuda_launch_counter_counts_each_flow(cuda):
     _, (cfg, params, z, xp, mask) = _case(
         ("two flows", 100, 16, 8, 9, 2, 3, ()))

@@ -16,7 +16,8 @@ from nfisam_tpu.utils import split_host as j_split_host
 from nfisam_tpu_torch.factors import Factor
 from nfisam_tpu_torch.graph import FactorGraph
 from nfisam_tpu_torch.io import graph_file_parser, group_nodes_factors_incrementally
-from nfisam_tpu_torch.utils import KeyStream, split_host, torch_generator
+from nfisam_tpu_torch.utils import (KeyStream, generator_seed, split_host,
+                                    torch_generator)
 
 torch.set_num_threads(1)
 
@@ -96,6 +97,38 @@ def test_torch_generator_is_deterministic_per_key():
     c = torch.rand(8, generator=torch_generator(k2, "cpu"))
     assert torch.equal(a, b)
     assert not torch.equal(a, c)
+
+
+@pytest.mark.parametrize("lo", [7, 0, 2 ** 32 - 1])
+def test_cpu_generator_draws_differ_with_the_high_word(lo):
+    """Keys that differ only in their first word draw differently on the
+    CPU (mt19937 keeps 32 bits of its seed), and so do their
+    ``split_host`` children, whose low words agree (ROADMAP C7)."""
+    def draws(key):
+        return torch.rand(8, generator=torch_generator(key, "cpu"))
+
+    keys = [np.array([hi, lo], np.uint32) for hi in range(4)]
+    for i, a in enumerate(keys):
+        for b in keys[i + 1:]:
+            assert not torch.equal(draws(a), draws(b))
+            for ca, cb in zip(split_host(a, 3), split_host(b, 3)):
+                assert ca[1] == cb[1]
+                assert not torch.equal(draws(ca), draws(cb))
+
+
+def test_generator_seed_keeps_the_cards_64_bit_word():
+    """On a card the seed is the key's 64-bit word whole, so the card's
+    Philox streams do not depend on the CPU's fold; on the CPU the seed
+    fits the 32 bits mt19937 keeps and depends on both words."""
+    key = np.array([0x12345678, 0x9ABCDEF0], np.uint32)
+    assert generator_seed(key, "cuda") == 0x12345678 << 32 | 0x9ABCDEF0
+    assert generator_seed([0, 7], "cuda") == 7
+    cpu = [generator_seed([hi, lo], "cpu") for hi in range(64)
+           for lo in (0, 7, 2 ** 32 - 1)]
+    assert all(0 <= s < 2 ** 32 for s in cpu)
+    assert len(set(cpu)) == len(cpu)
+    gen = torch_generator(key, "cpu")
+    assert gen.initial_seed() == generator_seed(key, "cpu")
 
 
 def _batches_summary(batches):

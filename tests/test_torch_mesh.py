@@ -5,7 +5,8 @@ fits and passes on it, on the CPU: the counterparts of the JAX package's
 its virtual 8-device mesh.
 
 Tolerances: one sharded train step equals the world-1 step within 1e-6
-(the sharded loss sums its rows in another order), and the world-1 step
+(the sharded loss sums its rows in another order), 30 more steps within
+1e-3 relative (Adam grows that gap), and the world-1 step
 equals the JAX package's within 1e-5; the sharded conditional sampler and
 the sharded fused posterior pass equal their unsharded runs exactly (each
 rank draws the whole base sample and inverts its rows, row by row), and
@@ -48,6 +49,11 @@ JAX_TOL = dict(atol=1e-5, rtol=1e-5)
 LOSS_TOL = dict(rtol=5e-3, atol=5e-3)
 PARAM_ATOL = 5e-2
 MOMENT_TOL = 0.15
+# the losses after 30 more sharded steps against world 1's: Adam grows
+# the first step's ~1e-7 reduction-order gap, by init key [s, 7], s =
+# 0-15, to 6e-7 ... 4.016e-4 relative (``python tests/test_torch_mesh.py
+# step-scatter``); the next decade above that spread
+STEPS_RTOL = 1e-3
 
 
 @pytest.fixture(scope="module")
@@ -77,7 +83,8 @@ def test_make_mesh_shapes(ranks):
 def test_sharded_train_step_matches_world_one_and_descends(ranks):
     """One step on the (2, 2) mesh (each rank 2 cliques, 32 rows of 64)
     equals the world-1 step within 1e-6: the ranks' parameter blocks and
-    every clique's loss; 30 more steps lower every clique's loss."""
+    every clique's loss; 30 more steps lower every clique's loss, to
+    world 1's within ``STEPS_RTOL``."""
     (params, loss1), last = step_run(make_mesh(), "cpu")
     for rank in ranks["step"]:
         (p, l1), l_last = rank["first"], rank["last"]
@@ -89,7 +96,8 @@ def test_sharded_train_step_matches_world_one_and_descends(ranks):
                     mine[k].numpy(), ref[k][rank["cliques"]].numpy(),
                     atol=STEP_TOL, rtol=0)
         assert np.all(l_last.numpy() < l1.numpy())
-        np.testing.assert_allclose(l_last.numpy(), last.numpy(), rtol=1e-4)
+        np.testing.assert_allclose(l_last.numpy(), last.numpy(),
+                                   rtol=STEPS_RTOL)
 
 
 def test_world_one_train_step_matches_jax():
@@ -282,3 +290,34 @@ def test_parallel_solver_end_to_end_on_mesh(ranks):
                                            atol=MOMENT_TOL)
                 np.testing.assert_allclose(x.std(0), ref.std(0),
                                            atol=MOMENT_TOL)
+
+
+def step_scatter() -> None:
+    """The sharded step's losses on the (2, 2) mesh against world 1 for
+    each init key of ``STEP_KEYS``: the largest gap relative to the
+    world-1 loss after the first step and after 30 more, by key and over
+    all keys."""
+    import tempfile
+
+    from torch_rank_cases import STEP_KEYS
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_ranks("step_keys", 4, tmp)
+    worst = [0.0, 0.0]
+    for key in STEP_KEYS:
+        (_, first), last = step_run(make_mesh(), "cpu", key=key)
+        gaps = [0.0, 0.0]
+        for rank in ranks:
+            for i, (mine, ref) in enumerate(zip(rank[key], (first, last))):
+                rel = np.abs(mine.numpy() - ref.numpy()) / np.abs(ref.numpy())
+                gaps[i] = max(gaps[i], float(rel.max()))
+        worst = [max(w, g) for w, g in zip(worst, gaps)]
+        print(f"init key {list(key)}: mesh vs world 1, largest relative "
+              f"loss gap after 1 step {gaps[0]!r}, after 31 {gaps[1]!r}",
+              flush=True)
+    print(f"keys {[list(k) for k in STEP_KEYS]}: worst after 1 step "
+          f"{worst[0]!r}, after 31 {worst[1]!r}", flush=True)
+
+
+if __name__ == "__main__" and sys.argv[1:] == ["step-scatter"]:
+    step_scatter()

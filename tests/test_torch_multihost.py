@@ -178,3 +178,66 @@ def test_chip_smoke_runs_a_dryrun_as_a_child(tmp_path, capsys):
                                  str(tmp_path))
     with pytest.raises(SystemExit, match="phase 26 multichip 4 failed"):
         chip_smoke.report_children([bad])
+
+
+# --------------------------------------------------------------------------
+# the independence gate's yardstick: the range posterior across seeds
+# --------------------------------------------------------------------------
+def independent_solve(arm: str, seed: int) -> dict:
+    """The dry run's single-rank solve at ``--fast`` for ``seed``, by the
+    JAX script's own ``solve`` (``scripts/dryrun_multihost.py``, read as
+    source) or by the port's: final samples by name."""
+    from nfisam_tpu_torch.parallel import dryrun
+    if arm == "port":
+        import torch
+        return dryrun._by_name(dryrun.solve(
+            dryrun.multihost_batches(), dryrun.multihost_args(seed, True),
+            torch.device("cpu")))
+    from torch_script_ast import script_functions, script_path
+    ns = script_functions(script_path("dryrun_multihost.py"),
+                          ["build_graph", "solve"],
+                          {"os": os, "N_ROBOTS": dryrun.N_ROBOTS,
+                           "T": dryrun.T, **{k: dryrun.FAST[v] for k, v in (
+                               ("ITERS", "flow_iterations"),
+                               ("N_LOCAL", "local_sample_num"),
+                               ("N_POST", "posterior_sample_num"))}})
+    return ns["solve"]("single", seed)[0]
+
+
+def independence_report(out_dir: str) -> None:
+    """The worst range-posterior MMD (the independence gate's statistic)
+    between every two seeds each package solved into ``out_dir``: each
+    pair, then the median, the 90th percentile and the largest."""
+    from itertools import combinations
+
+    from nfisam_tpu_torch.parallel import dryrun
+    runs = {}
+    for name in sorted(os.listdir(out_dir)):
+        arm, seed = name[:-4].split("_")
+        with np.load(os.path.join(out_dir, name)) as z:
+            runs.setdefault(arm, {})[int(seed)] = dict(z)
+    for arm, by_seed in sorted(runs.items()):
+        gaps = []
+        for s, t in combinations(sorted(by_seed), 2):
+            end, m = dryrun.worst_range_mmd(by_seed[s], by_seed[t],
+                                            dryrun.N_ROBOTS, dryrun.T - 1,
+                                            "L1")
+            gaps.append(m)
+            print(f"{arm} seeds {s} vs {t}: {m!r} ({end})", flush=True)
+        print(f"{arm}, {len(by_seed)} seeds, {len(gaps)} pairs: median "
+              f"{float(np.median(gaps))!r}, 90th percentile "
+              f"{float(np.percentile(gaps, 90))!r}, largest "
+              f"{max(gaps)!r}", flush=True)
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["independence-scatter"]:
+    # python tests/test_torch_multihost.py independence-scatter DIR ARM
+    # SEED: one solve into DIR/ARM_SEED.npz (ARM JAX or port; run seeds
+    # side by side), then ... independence-report DIR
+    os.environ.update(JAX_PLATFORMS="cpu", XLA_FLAGS=(
+        "--xla_force_host_platform_device_count=4"))
+    out_dir, arm, seed = sys.argv[2], sys.argv[3], int(sys.argv[4])
+    np.savez(os.path.join(out_dir, f"{arm}_{seed}.npz"),
+             **independent_solve(arm, seed))
+elif __name__ == "__main__" and sys.argv[1:2] == ["independence-report"]:
+    independence_report(sys.argv[2])

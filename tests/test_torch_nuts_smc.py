@@ -111,17 +111,26 @@ def test_nested_and_smc_ring_posterior():
     assert mmd(a, b) < 0.12
 
 
+# the share of the 512 chains that move right, and that move left: the
+# JAX package's right share over its seeds 0-15 (``python
+# tests/test_torch_nuts_smc.py symmetry``) has mean 0.4229 and std 0.0244,
+# below 1/2 because ~15% of its chains stay at 0; within 3 of its std
+SHARE_BAND = (0.4229 - 3 * 0.0244, 0.4229 + 3 * 0.0244)
+
+
 def test_nuts_transition_direction_symmetric():
     """A NUTS transition on a symmetric target from a symmetric start
     gives a symmetric displacement (a leftward subtree's U-turn check
-    reads the displacement flipped)."""
+    reads the displacement flipped): the chains that move right and
+    those that move left each make a share within ``SHARE_BAND``."""
     kernel = build_nuts_kernel(lambda q: -0.5 * torch.sum(q * q, dim=1), 1,
                                NUTSConfig(max_treedepth=6))
     q1, _ = kernel(torch_generator(np.array([0, 7], np.uint32), "cpu"),
                    torch.zeros(512, 1), 0.25, torch.ones(1))
     d = q1[:, 0].numpy()
     assert abs(d.mean()) < 0.15, d.mean()
-    assert 0.42 < (d > 0).mean() < 0.58
+    for share in ((d > 0).mean(), (d < 0).mean()):
+        assert SHARE_BAND[0] < share < SHARE_BAND[1], share
     assert d.std() > 0.3
 
 
@@ -153,6 +162,49 @@ def jax_reference_figures():
         print(f"JAX {name}: worst {worst!r}")
 
 
-if __name__ == "__main__":
+def symmetry_scatter(seeds=range(16), arms=("JAX", "port")) -> None:
+    """The direction-symmetry transition (512 chains from 0 on a 1-D
+    Gaussian, max_treedepth 6, eps 0.25) by each package for each seed:
+    the shares of chains that moved right, stayed at 0 (the multinomial
+    pick returned the start) and moved left, the mean and the std; then
+    each share's mean, std and range over the seeds.  The JAX package's
+    test draws with ``PRNGKey(7)``, the port's with ``[0, 7]``; here the
+    JAX package takes ``PRNGKey(s)`` and the port ``[s, 7]``."""
+    from nfisam_tpu.samplers.nuts import NUTSConfig as JConfig
+    from nfisam_tpu.samplers.nuts import build_nuts_kernel as j_build
+
+    cfg = NUTSConfig(max_treedepth=6)
+    t_kernel = build_nuts_kernel(lambda q: -0.5 * torch.sum(q * q, dim=1),
+                                 1, cfg)
+    j_kernel = jax.jit(jax.vmap(lambda k, q: j_build(
+        lambda x: -0.5 * jnp.sum(x * x), 1, JConfig(max_treedepth=6))(
+            k, q, jnp.float32(0.25), jnp.ones(1))))
+    for arm in arms:
+        rows = []
+        for s in seeds:
+            if arm == "JAX":
+                q1, _ = j_kernel(jax.random.split(jax.random.PRNGKey(s), 512),
+                                 jnp.zeros((512, 1)))
+                d = np.asarray(q1)[:, 0]
+            else:
+                q1, _ = t_kernel(torch_generator(np.array([s, 7], np.uint32),
+                                                 "cpu"),
+                                 torch.zeros(512, 1), 0.25, torch.ones(1))
+                d = q1[:, 0].numpy()
+            rows.append(((d > 0).mean(), (d == 0).mean(), (d < 0).mean()))
+            print(f"{arm} seed {s}: right {rows[-1][0]!r} stayed "
+                  f"{rows[-1][1]!r} left {rows[-1][2]!r} mean "
+                  f"{float(d.mean())!r} std {float(d.std())!r}", flush=True)
+        for i, what in enumerate(("right", "stayed", "left")):
+            x = np.array([r[i] for r in rows])
+            print(f"{arm} {what} over seeds {list(seeds)}: mean "
+                  f"{float(x.mean())!r} std {float(x.std(ddof=1))!r} range "
+                  f"[{float(x.min())!r}, {float(x.max())!r}]", flush=True)
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["symmetry"]:
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    symmetry_scatter(arms=tuple(sys.argv[2:]) or ("JAX", "port"))
+elif __name__ == "__main__":
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     jax_reference_figures()

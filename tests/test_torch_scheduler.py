@@ -42,7 +42,7 @@ from nfisam_tpu_torch.io import graph_file_parser  # noqa: E402
 from nfisam_tpu_torch.io import group_nodes_factors_incrementally  # noqa: E402
 from nfisam_tpu_torch.parallel import ParallelNFiSAM, wavefronts  # noqa: E402
 from nfisam_tpu_torch.solver import NFiSAMArgs  # noqa: E402
-from test_torch_solver import SMALL, _solve  # noqa: E402
+from test_torch_solver import CASE1_POSE_GAP_M, SMALL, _solve  # noqa: E402
 
 torch.set_num_threads(1)
 PLAZA_STEPS = 2
@@ -125,10 +125,10 @@ def test_bucket_log_matches_jax(case1_runs, plaza_runs, which):
     assert torch_run[1].host_trained_cliques == []
 
 
-def _posterior_bounds(ours, theirs):
+def _posterior_bounds(ours, theirs, pose_gap: float):
     """``test_torch_solver``'s bounds: every pose's posterior mean within
-    3 m of JAX's, every landmark's within 12 m, joint translation MMD
-    below 0.15.  A landmark still on its range ring (a JAX posterior std
+    ``pose_gap`` of JAX's, every landmark's within 12 m, joint translation
+    MMD below 0.15.  A landmark still on its range ring (a JAX posterior std
     above 12 m on an axis: plaza1's first steps leave three of its four
     landmarks on 30-40 m rings) has no mean to compare and is left to the
     joint MMD."""
@@ -137,7 +137,8 @@ def _posterior_bounds(ours, theirs):
             continue
         gap = np.linalg.norm(ours[name][:, :2].mean(0) -
                              theirs[name][:, :2].mean(0))
-        assert gap < (12.0 if name.startswith("L") else 3.0), (name, gap)
+        assert gap < (12.0 if name.startswith("L") else pose_gap), \
+            (name, gap)
     names = sorted(ours)
     joint = mmd(np.hstack([ours[n][:, :2] for n in names]),
                 np.hstack([theirs[n][:, :2] for n in names]))
@@ -147,9 +148,12 @@ def _posterior_bounds(ours, theirs):
 @pytest.mark.parametrize("which", ["case1", "plaza1"])
 def test_posterior_matches_jax_in_distribution(case1_runs, plaza_runs,
                                                which):
+    """Case1's poses within ``CASE1_POSE_GAP_M`` (the JAX package's own
+    spread between its seeds), plaza1's within 3 m."""
     jax_run, torch_run = case1_runs if which == "case1" else plaza_runs
     _posterior_bounds(torch_run[0][-1]["samples"],
-                      jax_run[0][-1]["samples"])
+                      jax_run[0][-1]["samples"],
+                      CASE1_POSE_GAP_M if which == "case1" else 3.0)
     for step in torch_run[0]:
         for x in step["samples"].values():
             assert x.shape[0] == SMALL["posterior_sample_num"]

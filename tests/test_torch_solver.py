@@ -45,6 +45,10 @@ SMALL = dict(posterior_sample_num=500, local_sample_num=300,
              flow_iterations=60, num_knots=9, learning_rate=0.025,
              hidden_dim=8, average_window=25, loss_delta_tol=0.04,
              elimination_method="pose_first", mode_repair=False, seed=1)
+# how far a pose's last-step posterior mean moves between two of the JAX
+# package's own seeds at SMALL: the largest gap over seeds 1-16 (X5,
+# 4.805 m; ``python tests/test_torch_solver.py scatter``)
+CASE1_POSE_GAP_M = 4.81
 
 
 def _tree(tree):
@@ -113,16 +117,18 @@ def test_posterior_is_finite_and_shaped(torch_run, name2dim):
 def test_posterior_matches_jax_in_distribution(jax_run, torch_run):
     """Last step: the joint translation MMD between the two solves below
     0.15 (kernel sigma 1 m over all 8 variables; it reads 0.02-0.06 for
-    seeds 1-2), every pose's posterior mean within 3 m of JAX's and every
-    landmark's within 12 m.  The mean bounds are loose on purpose: at
-    these reduced settings the JAX solve's own landmark means move by
-    ~11 m and its last pose by ~3 m between seeds 1 and 2 (ring-mode
-    commitment), so a tighter bound would test the seed, not the port."""
+    seeds 1-2), every pose's posterior mean within ``CASE1_POSE_GAP_M`` of
+    JAX's and every landmark's within 12 m.  The mean bounds are loose on
+    purpose: at these reduced settings the JAX solve's own means move
+    between its seeds (ring-mode commitment; seeds 1-16: its last pose by
+    up to 4.805 m, L2 by up to 18.3 m), so a tighter bound would test the
+    seed, not the port."""
     ours, theirs = torch_run[0][-1]["samples"], jax_run[0][-1]["samples"]
     for name in ours:
         gap = np.linalg.norm(ours[name][:, :2].mean(0) -
                              theirs[name][:, :2].mean(0))
-        assert gap < (12.0 if name.startswith("L") else 3.0), (name, gap)
+        assert gap < (12.0 if name.startswith("L") else CASE1_POSE_GAP_M), \
+            (name, gap)
     names = sorted(ours)
     joint = mmd(np.hstack([ours[n][:, :2] for n in names]),
                 np.hstack([theirs[n][:, :2] for n in names]))
@@ -322,7 +328,59 @@ def jax_reference_gate(seeds=(1, 2, 3)):
     return chip_smoke.median_gate(per_seed, name2dim)
 
 
-if __name__ == "__main__":
+def posterior_mean_scatter(arm: str, seeds) -> dict:
+    """Case1 at ``SMALL`` by one package (``JAX`` or ``port``) for each
+    seed: the last step's posterior translation mean of every variable,
+    {seed: {name: [x, y]}}, each seed printed as it ends."""
+    means = {}
+    for seed in seeds:
+        args = {**SMALL, "seed": seed}
+        if arm == "JAX":
+            nodes, _, factors = j_parse(CASE1, "fg")
+            steps, _ = _solve(JNFiSAM(JNFiSAMArgs(**args)),
+                              j_group(nodes, factors, incremental_step=1),
+                              np.asarray)
+        else:
+            nodes, _, factors = graph_file_parser(CASE1)
+            steps, _ = _solve(NFiSAM(NFiSAMArgs(**args), device="cpu"),
+                              group_nodes_factors_incrementally(nodes,
+                                                                factors, 1),
+                              lambda x: x.numpy())
+        means[seed] = {name: [float(v) for v in x[:, :2].mean(0)]
+                       for name, x in steps[-1]["samples"].items()}
+        print(f"{arm} seed {seed}: {json.dumps(means[seed])}", flush=True)
+    return means
+
+
+def scatter_report(jax_means: dict, port_means: dict) -> None:
+    """For each variable: the largest gap between two JAX seeds' posterior
+    means (how far the JAX package moves between its own seeds) and the
+    gaps between the port and the JAX package at each shared seed."""
+    def gap(a, b):
+        return float(np.linalg.norm(np.subtract(a, b)))
+
+    for name in sorted(next(iter(jax_means.values()))):
+        own = [gap(jax_means[s][name], jax_means[t][name])
+               for s in jax_means for t in jax_means if s < t]
+        cross = {s: round(gap(port_means[s][name], jax_means[s][name]), 4)
+                 for s in port_means if s in jax_means}
+        print(f"{name}: JAX between its seeds max {max(own)!r} median "
+              f"{float(np.median(own))!r}; port vs JAX by seed {cross}",
+              flush=True)
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["scatter"]:
+    # python tests/test_torch_solver.py scatter [JAX|port] [seed ...]:
+    # one package's means (seeds 1-8 by default); both packages, then the
+    # report, without a package named
+    arms = [a for a in sys.argv[2:] if a in ("JAX", "port")] or \
+        ["JAX", "port"]
+    seeds = [int(a) for a in sys.argv[2:] if a not in arms] or \
+        list(range(1, 9))
+    runs = {arm: posterior_mean_scatter(arm, seeds) for arm in arms}
+    if len(runs) == 2:
+        scatter_report(runs["JAX"], runs["port"])
+elif __name__ == "__main__":
     mmd_joint, ref_mmd, results = jax_reference_gate()
     for seed, (ours, _, per) in zip((1, 2, 3), results):
         print(f"seed {seed}: joint MMD {ours:.4f}, per step "

@@ -99,14 +99,14 @@ def r2_graph_solve(device, seed: int = 3, mesh=None, sample_mesh=None):
             getattr(samples, "shard_rows", None))
 
 
-def step_run(mesh, device, steps: int = 30):
+def step_run(mesh, device, steps: int = 30, key=(0, 7)):
     """(params and losses after one step, losses after ``steps`` more) of
-    the sharded train step from ``init``."""
+    the sharded train step from ``init`` with ``key``."""
     from nfisam_tpu_torch.parallel import build_sharded_train_step
     cfg, data = inputs("step", device)
     step, init, shard = build_sharded_train_step(cfg, mesh,
                                                  learning_rate=0.05)
-    params, state = init(np.array([0, 7], np.uint32), 4, device)
+    params, state = init(np.array(key, np.uint32), 4, device)
     local = shard(data)
     params, state, loss1 = step(params, state, local)
     first = ([{k: v.cpu() for k, v in p.items()} for p in params],
@@ -166,6 +166,22 @@ def step(device):
     return {"shape": dict(mesh.shape), "index": (mesh.clique_index,
                                                  mesh.data_index),
             "cliques": mesh.rows(4, "clique"), "first": first, "last": last}
+
+
+# the init keys of ``step_keys``: [s, 7] for s = 0-15
+STEP_KEYS = [(s, 7) for s in range(16)]
+
+
+@case
+def step_keys(device):
+    """The step case's losses after 1 and 31 steps for each of
+    ``STEP_KEYS``."""
+    mesh = grid()
+    out = {}
+    for key in STEP_KEYS:
+        (_, first), last = step_run(mesh, device, key=key)
+        out[key] = (first, last)
+    return out
 
 
 @case
