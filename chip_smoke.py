@@ -107,7 +107,8 @@ of JAX or of the JAX package, and exits non-zero if any phase fails:
    solves must give the same RMSE and final NLL bit for bit, and the
    product timing sets the fixed-order CSR product beside cuSPARSE's;
 16. the eight-node R^2 displacement chain of the JAX package's
-   ``examples/toy_examples/r2_relative_eight_nodes.py`` (natural
+   ``examples/toy_examples/r2_relative_eight_nodes.py``, through the
+   port's module of it (``nfisam_tpu_torch.examples``; natural
    ordering, K=8, 1500 training samples, <= 800 iterations, lr 0.03,
    1000 draws) by ``NFiSAM`` for seeds 0-2, against its exact Gaussian
    posterior (``gaussian_displacement_graph_moments``); gates: every
@@ -174,7 +175,8 @@ of JAX or of the JAX package, and exits non-zero if any phase fails:
    writer) on the eight-node chain and on the JAX package's closed-form
    MAP test graph, every estimate within 1e-3 m of the exact mean; then
    ``examples/toy_examples/r2_range_incremental.py``'s 4 steps by
-   ``NFiSAM`` with mode repair on, seeds 0-2: L1's mean range to X0, X2
+   ``NFiSAM`` through the port's module of it, with mode repair on,
+   seeds 0-2: L1's mean range to X0, X2
    and X3 within 0.5 m of 5.0, 4.0 and 5.0, the repair log printed beside
    the JAX package's on the CPU;
 25. ``python -m nfisam_tpu_torch.parallel.dryrun multihost``: 2 ranks on
@@ -232,20 +234,41 @@ of JAX or of the JAX package, and exits non-zero if any phase fails:
    script's own oracle on the CPU over keys [0-2, 7], its weight on each
    true association at least the JAX CPU worst less 0.05; the pass's
    translation RMSE <= 1.25x the JAX script's CPU worst over seeds 1-5,
-   finite samples, the fused pass equal to the walk, launches.
+   finite samples, the fused pass equal to the walk, launches;
+32. in one child, the repo's examples through the port's modules
+   (``nfisam_tpu_torch.examples``), each at the JAX example's
+   configuration: eight_pose_circle (an SE(2) loop closure, natural
+   ordering, K=9, one batch solve), five_node_range_incremental (SE(2)
+   poses and a range landmark, K=8, 4 steps), run_nfisam (case1 by
+   ``NFiSAM`` through the run harness at the journal configuration) then
+   its MMD through the example's ``compute_mmd``,
+   generate_reference_solution (static nested sampling, 1000 live
+   points, on case1's first 4 of 6 prefixes: cut for time, PERF.md §4)
+   and generate_and_run (a
+   lawnmower world generated at seed 1, its ``.fg`` written, solved 5
+   poses a step); gates: every pose's posterior mean (translation and
+   heading) within 2x the JAX example's CPU worst distance from
+   ``GaussNewtonMAP`` of the graph, every std finite and > 0; at each
+   five-node step the poses within 2x the JAX worst distance from that
+   step's MAP, and L1's share on each side of the x-axis inside the JAX
+   band widened by 0.1; run_nfisam's mean joint MMD <= 2x the reference
+   run1's; each NS step's joint MMD to ``data/case1_ref`` <= 2x the JAX
+   example's worst; the ``.fg``'s sha256 the JAX example's and the
+   translation RMSE <= 1.25x the JAX worst over solver seeds 0-2; the
+   fused pass equal to the walk and launches for every solver.
 
-Phases 25-31 and 11 (plaza1_ada0.2) run in child processes, started
+Phases 25-32 and 11 (plaza1_ada0.2) run in child processes, started
 after the kernel checks (which are timed alone on the card) and joined
 before step 14's fused-pass checks, where the host has at least
 ``PARALLEL_MIN_CORES`` usable cores and the card is in the ``Default``
-compute mode; otherwise phase 11 runs in this process and phases 25-31
+compute mode; otherwise phase 11 runs in this process and phases 25-32
 one after another after phase 24.  The host's core counts and the
 compute mode are printed first.  The children's launched shapes join
 this process's for the final check.
 
 Each solve's kernel launches are counted from 0 just before it and read
 just after; the specialised kernel line's ``launches`` are
-lawnmower_4x4's (18) and phases 27-31's, the generic kernel line's phase
+lawnmower_4x4's (18) and phases 27-32's, the generic kernel line's phase
 23's seed-1 solve through the command line; the phase-22 case1 solve's
 are printed and must be > 0.  The output ends with one ``{"kernels":
 [...]}`` JSON line (both kernels), the card's name and power limit, and
@@ -268,6 +291,18 @@ import time
 import numpy as np
 import torch
 
+from nfisam_tpu_torch.examples.manhattan_world_with_range import \
+    generate_and_run as gar
+from nfisam_tpu_torch.examples.small_range_gaussian_problem import (
+    compute_mmd, generate_reference_solution, run_nfisam)
+from nfisam_tpu_torch.examples.toy_examples import (
+    eight_pose_circle, five_node_range_incremental, r2_range_incremental,
+    r2_relative_eight_nodes as r8)
+# the R^2 toys' graphs and arguments (the CPU tests read them here too)
+from nfisam_tpu_torch.examples.toy_examples.r2_range_incremental import (
+    R2_RANGE_ARGS, r2_range_graph)
+from nfisam_tpu_torch.examples.toy_examples.r2_relative_eight_nodes import (
+    EIGHT_NODE_ARGS, eight_node_graph)
 from nfisam_tpu_torch.scripts import case1_da_run as cdr
 from nfisam_tpu_torch.scripts import manhattan_plaza_run as mpr
 from nfisam_tpu_torch.scripts import manhattan_run as mr
@@ -538,14 +573,11 @@ MANHATTAN_G16_ARGV = ["--grid", "16", "--landmarks", "6", "--range-prob",
 MANHATTAN_G16_SHAPE = (32, 16, 9)
 JAX_MANHATTAN_G16_WORST = 3.5875400165335942
 MANHATTAN_PARITY_FACTOR = 2.0
-# the eight-node R^2 chain (examples/toy_examples/r2_relative_eight_nodes.py)
-# at that example's configuration, seeds 0-2; its gate is 2x the JAX
-# package's worst over the same seeds on the CPU (``JAX_PLATFORMS=cpu
-# python tests/test_torch_oracles.py``): the sample-mean error (m) and the
-# relative error of a sample variance
-EIGHT_NODE_ARGS = dict(posterior_sample_num=1000, local_sample_num=1500,
-                       flow_iterations=800, num_knots=8, learning_rate=0.03,
-                       elimination_method="natural")
+# the eight-node R^2 chain (the port's examples.toy_examples.
+# r2_relative_eight_nodes, EIGHT_NODE_ARGS) at that example's configuration,
+# seeds 0-2; its gate is 2x the JAX package's worst over the same seeds on
+# the CPU (``JAX_PLATFORMS=cpu python tests/test_torch_oracles.py``): the
+# sample-mean error (m) and the relative error of a sample variance
 EIGHT_NODE_SEEDS = (0, 1, 2)
 JAX_EIGHT_NODE_WORST = (0.07326130467005305, 0.15221419708862693)
 EIGHT_NODE_GATE_FACTOR = 2.0
@@ -655,7 +687,8 @@ JAX_OPTIONS_MMD_WORST = {
 # eight-node chain and the closed-form graph of the JAX package's
 # tests/test_map_solver.py, every estimate within R2_MAP_TOL_M of the
 # exact mean; then examples/toy_examples/r2_range_incremental.py's 4 steps
-# by ``NFiSAM`` with mode repair on (its configuration: 500 draws, 1000
+# (the port's examples.toy_examples.r2_range_incremental) by ``NFiSAM``
+# with mode repair on (its configuration, R2_RANGE_ARGS: 500 draws, 1000
 # training samples, <= 800 iterations, K=8, lr 0.03, pose_first), seeds
 # 0-2; gate: L1's posterior mean range to X0, X2, X3 within R2_RANGE_GATE_M
 # of the measured 5.0, 4.0, 5.0 m.  The JAX package's repair logs on the
@@ -663,13 +696,51 @@ JAX_OPTIONS_MMD_WORST = {
 # tests/test_torch_r2_odometry.py``) are printed beside the port's, not
 # gated: the JAX package reads an asynchronous snapshot
 R2_MAP_TOL_M = 1e-3
-R2_RANGE_ARGS = dict(posterior_sample_num=500, local_sample_num=1000,
-                     flow_iterations=800, num_knots=8, learning_rate=0.03,
-                     elimination_method="pose_first", mode_repair=True)
 R2_RANGE_SEEDS = (0, 1, 2)
 R2_RANGE_MEASURED = {"X0": 5.0, "X2": 4.0, "X3": 5.0}
 R2_RANGE_GATE_M = 0.5
 JAX_R2_RANGE_REPAIR_LOGS = ([], [], [])
+# phase 32: the repo's examples through the port's modules
+# (nfisam_tpu_torch.examples), each at the JAX example's configuration, in
+# one child.  The constants are the JAX examples' own code on the CPU over
+# seeds 0-2 (keys [s, 7] for the sampler), printed by ``JAX_PLATFORMS=cpu
+# python tests/test_torch_examples.py eight_pose|five_node|ns_reference|
+# generate_and_run``:
+# - eight_pose_circle: every pose's posterior-mean translation and wrapped
+#   heading within EXAMPLE_GATE_FACTOR x the JAX worst distance from
+#   ``GaussNewtonMAP`` of the graph (m, rad); every std finite and > 0;
+# - five_node_range_incremental: at each step the poses' means within
+#   EXAMPLE_GATE_FACTOR x the JAX worst distance from that step's MAP (m);
+#   at step 3 L1's share of samples on each side of the x-axis inside the
+#   JAX band of those shares (its two modes are mirror images, so the band
+#   holds both sides' shares) widened by FIVE_NODE_BAND_MARGIN;
+# - run_nfisam: its mean joint MMD over steps 0-5 against data/case1_ref
+#   through the example's compute_mmd <= MMD_GATE_FACTOR x the reference
+#   run1's through the same (bench.py's case1 gate);
+# - generate_reference_solution: each step's joint MMD against
+#   data/case1_ref's posterior of that step <= EXAMPLE_GATE_FACTOR x the
+#   JAX example's worst; cut for the schedule to its first
+#   NS_REFERENCE_STEPS of 6 steps (beside the main path its 6 steps took
+#   260.3 s and the script 1011.7 s of phases; alone steps 0-3 take 26.5
+#   of the 6 steps' 65.8 s; PERF.md §4-§5, where the 6 steps run through
+#   the tool);
+# - generate_and_run (the graph and the solver at GENERATE_RUN_SEED): the
+#   factor_graph.fg's sha256 the JAX example's, the translation RMSE <=
+#   LAWNMOWER_GATE_FACTOR x the JAX worst over solver seeds 0-2.
+EXAMPLE_GATE_FACTOR = 2.0
+JAX_EIGHT_POSE_WORST = (0.6463688588997117, 0.06727072449440807)
+JAX_FIVE_NODE_WORST = (0.011621664200335738, 0.023484043364788973,
+                       0.06465731790435666, 0.8497882687501032)
+JAX_FIVE_NODE_L1_SIDES = (0.194, 0.806)
+FIVE_NODE_BAND_MARGIN = 0.1
+NS_REFERENCE_STEPS = 4
+JAX_NS_REFERENCE_MMD = (0.002333892411136842, 0.023686277821234978,
+                        0.024401832953917926, 0.04061446874501069,
+                        0.03391216375870396, 0.051074103909216045)
+GENERATE_RUN_SEED = 1
+JAX_GENERATE_FG_SHA256 = ("b9218f5efe0b20623af2225de511364a9ef46e284d8fdbb3"
+                          "610038ed4060dbae")
+JAX_GENERATE_RUN_WORST = 9.320458826402447
 
 
 def lawnmower_argv(seed: int, out: str, ckpt: str = None) -> list:
@@ -2018,27 +2089,6 @@ def scale_line(m: dict) -> str:
 # this slice's paths: the eight-node oracle, case1 from the JAX package's
 # checkpoint store, lawnmower_4x4 through the command line
 # --------------------------------------------------------------------------
-def eight_node_graph(core, factors):
-    """The eight-node R^2 chain of ``examples/toy_examples/
-    r2_relative_eight_nodes.py`` in the package whose ``core`` and
-    ``factors`` are given: a Gaussian prior on X0 and displacements of 3 m,
-    alternately along x and y.  Returns (variables, factors, the closed
-    form's (variables, displacements, priors) arguments)."""
-    xs = [core.R2Variable(f"X{i}") for i in range(8)]
-    prior_cov = np.diag([0.09, 0.09])
-    odom_cov = np.diag([0.04, 0.04])
-    moves = [np.array([3.0, 0.0]) if i % 2 == 0 else np.array([0.0, 3.0])
-             for i in range(7)]
-    fs = [factors.UnaryR2GaussianPriorFactor(xs[0], np.zeros(2), prior_cov)]
-    fs += [factors.R2RelativeGaussianLikelihoodFactor(xs[i], xs[i + 1], mv,
-                                                      odom_cov)
-           for i, mv in enumerate(moves)]
-    oracle = (xs, {(xs[i], xs[i + 1]): (mv, odom_cov)
-                   for i, mv in enumerate(moves)},
-              {xs[0]: (np.zeros(2), prior_cov)})
-    return xs, fs, oracle
-
-
 def eight_node_errors(samples: dict, oracle) -> tuple:
     """Per variable (in order): the sample mean's distance from the exact
     posterior mean, and the largest relative error of a sample variance
@@ -2059,17 +2109,10 @@ def eight_node_errors(samples: dict, oracle) -> tuple:
 
 
 def solve_eight_nodes(seed: int, device, **overrides):
-    """The eight-node chain by ``NFiSAM`` in one step.  Returns
-    (timings, host samples, solver, closed-form arguments)."""
-    import nfisam_tpu_torch.core as core
-    import nfisam_tpu_torch.factors as factors
-    from nfisam_tpu_torch.solver import NFiSAM, NFiSAMArgs
-
-    xs, fs, oracle = eight_node_graph(core, factors)
-    solver = NFiSAM(NFiSAMArgs(**{**EIGHT_NODE_ARGS, **overrides,
-                                  "seed": seed}), device=device)
-    steps, per_step = run_incremental(solver, [(xs, fs)], device)
-    return steps, per_step[-1], solver, oracle
+    """The eight-node chain by ``NFiSAM`` in one step (the example
+    module's ``solve``).  Returns (timings, host samples, solver,
+    closed-form arguments)."""
+    return r8.solve(seed, device, **overrides)
 
 
 def eight_node_phase(device):
@@ -2910,24 +2953,6 @@ def r2_map_errors(device, tmp: str) -> dict:
     return errs
 
 
-def r2_range_graph(core, factors):
-    """examples/toy_examples/r2_range_incremental.py's four steps in the
-    package whose ``core`` and ``factors`` are given: R^2 poses on an
-    odometry chain, ranges from three of them to one landmark."""
-    xs = [core.R2Variable(f"X{i}") for i in range(4)]
-    lm = core.R2Variable("L1", core.VariableType.Landmark)
-    cov2 = np.diag([0.04, 0.04])
-    rel = factors.R2RelativeGaussianLikelihoodFactor
-    rng = factors.R2RangeGaussianLikelihoodFactor
-    return [([xs[0], lm], [factors.UnaryR2GaussianPriorFactor(
-                xs[0], np.zeros(2), cov2), rng(xs[0], lm, 5.0, 0.3)]),
-            ([xs[1]], [rel(xs[0], xs[1], np.array([4.0, 0.0]), cov2)]),
-            ([xs[2]], [rel(xs[1], xs[2], np.array([4.0, 0.0]), cov2),
-                       rng(xs[2], lm, 4.0, 0.3)]),
-            ([xs[3]], [rel(xs[2], xs[3], np.array([0.0, 4.0]), cov2),
-                       rng(xs[3], lm, 5.0, 0.3)])]
-
-
 def r2_ranges(samples: dict) -> dict:
     """L1's posterior mean range to each measured pose."""
     return {x: float(np.linalg.norm(samples["L1"] - samples[x][:, :2],
@@ -2936,16 +2961,11 @@ def r2_ranges(samples: dict) -> dict:
 
 
 def solve_r2_range(seed: int, device, **overrides) -> tuple:
-    """The R^2 range example by ``NFiSAM`` at its configuration.  Returns
-    (per-step timings, last step's samples, repair log)."""
-    import nfisam_tpu_torch.core as core
-    import nfisam_tpu_torch.factors as factors
-    from nfisam_tpu_torch.solver import NFiSAM, NFiSAMArgs
-
-    solver = NFiSAM(NFiSAMArgs(**{**R2_RANGE_ARGS, **overrides,
-                                  "seed": seed}), device=device)
-    steps, per_step = run_incremental(
-        solver, r2_range_graph(core, factors), device)
+    """The R^2 range example by ``NFiSAM`` at its configuration (the
+    example module's ``solve``).  Returns (per-step timings, last step's
+    samples, repair log)."""
+    steps, per_step, solver = r2_range_incremental.solve(seed, device,
+                                                         **overrides)
     return steps, per_step[-1], list(solver.mode_repair_log)
 
 
@@ -2997,7 +3017,7 @@ def r2_odometry_phase(device) -> None:
 # phases in child processes, side by side with the main process's
 # --------------------------------------------------------------------------
 # a host with at least this many usable cores and the card in the
-# ``Default`` compute mode runs plaza1_ada0.2 and phases 25-31 in child
+# ``Default`` compute mode runs plaza1_ada0.2 and phases 25-32 in child
 # processes beside the main process's phases, at most MAX_CHILDREN at
 # once and at CHILD_NICENESS (all seven at once slowed the main path:
 # PERF.md §5); else one after another
@@ -3083,7 +3103,8 @@ def child_phases(with_plaza_ada: bool) -> list:
     (clique, data) mesh, all on this card), ``with_plaza_ada`` of
     plaza1_ada0.2, and of the runners' phases: the headline Manhattan
     prefix (27), the plaza family (28), random_4x4 (29), manhattan_plaza
-    (30) and the case1_da oracle with the lawnmower_4x4 runner (31)."""
+    (30), the case1_da oracle with the lawnmower_4x4 runner (31) and the
+    examples (32)."""
     phases = [("phase 25 multihost", DRYRUN + ["multihost"]),
               ("phase 26 multichip 4", DRYRUN + ["multichip", "4"])]
     this = [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--child"]
@@ -3501,8 +3522,174 @@ def oracle_lawnmower_report(r: dict) -> None:
         raise SystemExit("phase 31: the manhattan_run gate failed")
 
 
+def _json_summary(summary: dict) -> dict:
+    return {k: v.item() if hasattr(v, "item") else v
+            for k, v in summary.items()}
+
+
+def examples_readings(device, ns_steps: int = NS_REFERENCE_STEPS,
+                      ns_live: int = generate_reference_solution.LIVE_POINTS,
+                      **overrides) -> dict:
+    """Phase 32: each example module's ``run`` at the JAX example's
+    configuration (``overrides`` of the solvers' arguments; the NS
+    reference cut to ``ns_steps`` at ``ns_live`` live points), in a
+    directory of its own: each example's printed lines, its readings
+    unrounded, its seconds and, for a solver, the kernel readings on its
+    final state (JSON-able)."""
+    from nfisam_tpu_torch.flows import ar_inverse_kernel
+
+    ar_inverse_kernel.launched_shapes.clear()
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="examples_")
+
+    def timed(label, fn, *args, **kw):
+        ar_inverse_kernel.reset_launches()
+        t0 = time.perf_counter()
+        r = fn(*args, **kw)
+        out[label] = {"s": time.perf_counter() - t0, "lines": r["lines"]}
+        return r
+
+    try:
+        r = timed("eight_pose_circle", eight_pose_circle.run, device,
+                  **overrides)
+        out["eight_pose_circle"].update(
+            trans_err=r["trans_err"], heading_err=r["heading_err"],
+            std=r["std"], **_kernel_readings(r["solver"], r["samples"]))
+        r = timed("five_node_range_incremental",
+                  five_node_range_incremental.run, device, **overrides)
+        out["five_node_range_incremental"].update(
+            pose_err=r["pose_err"], l1_above=r["l1_above"],
+            **_kernel_readings(r["solver"], r["per_step"][-1]))
+        r = timed("run_nfisam", run_nfisam.run, device, tmp, **overrides)
+        ours, run1 = [], []
+        for step in range(len(r["steps"])):
+            src = "dyn" if step <= 3 else "ns"
+            ref = os.path.join(REF_DIR, f"{src}_step{step}")
+            ours.append(compute_mmd.compute(
+                os.path.join(r["run_dir"], f"step{step}"), ref)[0])
+            run1.append(compute_mmd.compute(
+                os.path.join(REF_DIR, f"run1_step{step}"), ref)[0])
+        out["run_nfisam"].update(
+            mmd=ours, run1_mmd=run1, steps=r["steps"],
+            **_kernel_readings(r["solver"],
+                               host_samples(r["solver"]._samples)))
+        r = timed("generate_reference_solution",
+                  generate_reference_solution.run, device, tmp, ns_steps,
+                  ns_live)
+        name2var = compute_mmd.name_to_var()
+        mmds = []
+        for step, (samples, order) in enumerate(r["samples"]):
+            src = "dyn" if step <= 3 else "ns"
+            ref = os.path.join(REF_DIR, f"{src}_step{step}")
+            mmds.append(compute_mmd.mmds(
+                samples, order, np.loadtxt(ref + ".sample"),
+                compute_mmd.read_ordering(ref + "_ordering"), name2var)[0])
+        out["generate_reference_solution"].update(
+            mmd=mmds, steps=[{**row, "summary": _json_summary(row["summary"])}
+                             for row in r["steps"]],
+            launches=dict(ar_inverse_kernel.variant_launches))
+        r = timed("generate_and_run", gar.run, device, tmp,
+                  seed=GENERATE_RUN_SEED, **overrides)
+        out["generate_and_run"].update(
+            fg_sha256=r["fg_sha256"], trans_rmse=r["trans_rmse"],
+            steps=r["steps"], **_kernel_readings(r["solver"], r["samples"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return _child_shapes({"examples": out, "launches": {
+        k: sum(e["launches"][k] for e in out.values())
+        for k in ("specialized", "generic")}})
+
+
+def examples_report(r: dict) -> None:
+    """Phase 32's readings and gates (``EXAMPLE_GATE_FACTOR`` and the JAX
+    examples' CPU figures), and the kernel gates of every solver."""
+    ex = r["examples"]
+    for label, e in ex.items():
+        log(f"{label}: {e['s']:.1f} s in the child; launches "
+            f"{e['launches']}; it prints:")
+        for line in e["lines"]:
+            log(f"  {line}")
+    e = ex["eight_pose_circle"]
+    bound = [EXAMPLE_GATE_FACTOR * w for w in JAX_EIGHT_POSE_WORST]
+    worst = (max(e["trans_err"].values()), max(e["heading_err"].values()))
+    stds = np.array(list(e["std"].values()))
+    log(f"eight_pose_circle gate: worst posterior-mean distance from "
+        f"GaussNewtonMAP {worst[0]:.4f} m, heading {worst[1]:.4f} rad (<= "
+        f"{EXAMPLE_GATE_FACTOR} x the JAX example's worst over seeds 0-2 on "
+        f"the CPU {JAX_EIGHT_POSE_WORST} = {bound[0]:.4f} m, {bound[1]:.4f} "
+        f"rad); by pose {e['trans_err']}; stds in [{stds.min():.4f}, "
+        f"{stds.max():.4f}]; fused pass vs walk {e['fused_vs_walk']:.3e}")
+    _kernel_gates("eight_pose_circle", e)
+    if not (worst[0] <= bound[0] and worst[1] <= bound[1]):
+        raise SystemExit("eight_pose_circle: a posterior mean is off the "
+                         "MAP")
+    if not (np.isfinite(stds).all() and (stds > 0).all()):
+        raise SystemExit("eight_pose_circle: a std is not finite and > 0")
+    e = ex["five_node_range_incremental"]
+    _kernel_gates("five_node_range_incremental", e)
+    for step, errs in enumerate(e["pose_err"]):
+        bound = EXAMPLE_GATE_FACTOR * JAX_FIVE_NODE_WORST[step]
+        log(f"five_node_range_incremental gate, step {step}: worst pose "
+            f"distance from the step's GaussNewtonMAP "
+            f"{max(errs.values()):.4f} m (<= {EXAMPLE_GATE_FACTOR} x the JAX "
+            f"example's worst {JAX_FIVE_NODE_WORST[step]:.4f} = "
+            f"{bound:.4f}); {errs}")
+        if not max(errs.values()) <= bound:
+            raise SystemExit(f"five_node_range_incremental step {step}: a "
+                             f"pose mean is off the MAP")
+    lo = JAX_FIVE_NODE_L1_SIDES[0] - FIVE_NODE_BAND_MARGIN
+    hi = JAX_FIVE_NODE_L1_SIDES[1] + FIVE_NODE_BAND_MARGIN
+    sides = (e["l1_above"], 1.0 - e["l1_above"])
+    log(f"five_node_range_incremental gate: L1's share above and below the "
+        f"x-axis at step 3 {sides[0]:.4f} / {sides[1]:.4f} (in [{lo:.4f}, "
+        f"{hi:.4f}], the JAX band {JAX_FIVE_NODE_L1_SIDES} widened by "
+        f"{FIVE_NODE_BAND_MARGIN}); fused pass vs walk "
+        f"{e['fused_vs_walk']:.3e}")
+    if not all(lo <= x <= hi for x in sides):
+        raise SystemExit("five_node_range_incremental: L1's modes are off "
+                         "the JAX band")
+    e = ex["run_nfisam"]
+    ours, run1 = float(np.mean(e["mmd"])), float(np.mean(e["run1_mmd"]))
+    log(f"run_nfisam: steps {[round(st['s'], 3) for st in e['steps']]} s; "
+        f"cliques trained {[st['trained'] for st in e['steps']]}")
+    log(f"run_nfisam gate (compute_mmd): mean joint MMD over steps 0-"
+        f"{len(e['mmd']) - 1} {ours:.4f} (<= {MMD_GATE_FACTOR} x the "
+        f"reference run1's {run1:.4f} = {MMD_GATE_FACTOR * run1:.4f}); per "
+        f"step {[round(x, 4) for x in e['mmd']]}; fused pass vs walk "
+        f"{e['fused_vs_walk']:.3e}")
+    _kernel_gates("run_nfisam", e)
+    if not ours <= MMD_GATE_FACTOR * run1:
+        raise SystemExit("run_nfisam: the MMD gate failed")
+    e = ex["generate_reference_solution"]
+    for step, (x, row) in enumerate(zip(e["mmd"], e["steps"])):
+        bound = EXAMPLE_GATE_FACTOR * JAX_NS_REFERENCE_MMD[step]
+        log(f"generate_reference_solution gate, step {step}: {row['s']:.1f}"
+            f" s, {row['n']} samples, {row['summary']}; joint MMD to "
+            f"data/case1_ref {x:.4f} (<= {EXAMPLE_GATE_FACTOR} x the JAX "
+            f"example's worst {JAX_NS_REFERENCE_MMD[step]:.4f} = "
+            f"{bound:.4f})")
+        if not x <= bound:
+            raise SystemExit(f"generate_reference_solution step {step}: "
+                             f"the MMD gate failed")
+    e = ex["generate_and_run"]
+    bound = LAWNMOWER_GATE_FACTOR * JAX_GENERATE_RUN_WORST
+    log(f"generate_and_run gate: factor_graph.fg sha256 {e['fg_sha256']} "
+        f"(the JAX example's {JAX_GENERATE_FG_SHA256}); translation RMSE "
+        f"{e['trans_rmse']:.4f} m (<= {LAWNMOWER_GATE_FACTOR} x the JAX "
+        f"example's worst over solver seeds 0-2 on the CPU "
+        f"{JAX_GENERATE_RUN_WORST:.4f} = {bound:.4f}); steps "
+        f"{[round(st['s'], 3) for st in e['steps']]} s; fused pass vs walk "
+        f"{e['fused_vs_walk']:.3e}")
+    _kernel_gates("generate_and_run", e)
+    if e["fg_sha256"] != JAX_GENERATE_FG_SHA256:
+        raise SystemExit("generate_and_run: factor_graph.fg is not the JAX "
+                         "example's")
+    if not e["trans_rmse"] <= bound:
+        raise SystemExit("generate_and_run: the RMSE gate failed")
+
+
 def runner_child(readings_fn, result: str) -> int:
-    """A runner's phase (27-31) as a child process: the kernels built,
+    """A runner's phase (27-32) as a child process: the kernels built,
     then ``readings_fn(device)``'s readings and its seconds to
     ``result``."""
     from nfisam_tpu_torch.utils.cuda_build import build_all_kernels
@@ -3531,6 +3718,7 @@ RUNNER_CHILDREN = {
                         manhattan_plaza_report),
     "oracle_lawnmower": ("phase 31 oracle and lawnmower",
                          oracle_lawnmower_readings, oracle_lawnmower_report),
+    "examples": ("phase 32 examples", examples_readings, examples_report),
 }
 
 
@@ -3545,7 +3733,7 @@ def stop_children(children: list) -> None:
 def report_children(children: list) -> int:
     """Join the children, print their readings and fail on any gate: the
     dry runs gate themselves (a launch in every rank included); plaza1_
-    ada0.2's fused pass and the runners' phases' gates (27-31) are held
+    ada0.2's fused pass and the runners' phases' gates (27-32) are held
     here, and those children's launched shapes join this process's for
     ``check_launched_shapes``.  Returns the runners' phases' launches of
     the specialised kernel (0 if none was among the children)."""
@@ -3613,7 +3801,7 @@ def main() -> int:
     log(f"len(os.sched_getaffinity(0)) {usable}")
     log(f"compute mode {compute_mode}")
     side_by_side = usable >= PARALLEL_MIN_CORES and compute_mode == "Default"
-    log(f"plaza1_ada0.2 and phases 25-31: "
+    log(f"plaza1_ada0.2 and phases 25-32: "
         f"{'side by side, in child processes' if side_by_side else 'one after another'}"
         f" (needs >= {PARALLEL_MIN_CORES} usable cores and the Default "
         f"compute mode)")

@@ -167,7 +167,7 @@ def test_chip_smoke_runs_a_dryrun_as_a_child(tmp_path, capsys):
     assert "phase 25 multihost: child exited 0; joined" in out
     runners = ["manhattan g16 pose_first", "phase 28 plaza family",
                "phase 29 random_4x4", "phase 30 manhattan_plaza",
-               "phase 31 oracle and lawnmower"]
+               "phase 31 oracle and lawnmower", "phase 32 examples"]
     assert [label for label, _ in chip_smoke.child_phases(True)] == \
         ["phase 25 multihost", "phase 26 multichip 4", "plaza1_ada0.2"] + \
         runners

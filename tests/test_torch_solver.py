@@ -222,6 +222,14 @@ def test_port_imports_no_jax_and_no_jax_package():
             "nfisam_tpu_torch.utils.functions, "
             "nfisam_tpu_torch.utils.cuda_graph\n"
             "from nfisam_tpu_torch.train import fit_flows_batched\n"
+            "from nfisam_tpu_torch.examples.toy_examples import (\n"
+            "    r2_relative_eight_nodes, r2_range_incremental,\n"
+            "    eight_pose_circle, five_node_range_incremental)\n"
+            "from nfisam_tpu_torch.examples.small_range_gaussian_problem "
+            "import (\n"
+            "    run_nfisam, generate_reference_solution, compute_mmd)\n"
+            "from nfisam_tpu_torch.examples.manhattan_world_with_range "
+            "import generate_and_run\n"
             "import importlib, pkgutil\n"
             "for m in pkgutil.walk_packages(nfisam_tpu_torch.__path__, "
             "'nfisam_tpu_torch.'):\n"
@@ -232,6 +240,9 @@ def test_port_imports_no_jax_and_no_jax_package():
             "'nfisam_tpu', 'bench') or m.startswith(('jax.', 'optax.', "
             "'nfisam_tpu.'))]\n"
             "assert not bad, bad\n"
+            "examples = sorted(m for m in sys.modules if m.startswith("
+            "'nfisam_tpu_torch.examples.') and m.count('.') == 3)\n"
+            "assert len(examples) == 8, examples\n"
             "print('clean')\n")
     out = _run(code)
     assert out.returncode == 0, out.stderr

@@ -16,6 +16,12 @@ def script_path(name: str) -> str:
     return os.path.join(REPO, "scripts", name)
 
 
+def example_path(family: str, name: str) -> str:
+    """A JAX example, ``examples/<family>/<name>``: read it as a script
+    (each edits ``sys.path`` and runs its example at import)."""
+    return os.path.join(REPO, "examples", family, name)
+
+
 def _tree(path: str) -> tuple:
     with open(path) as fh:
         src = fh.read()
@@ -58,6 +64,38 @@ def function_statements(path: str, func: str, start: str, stop=None):
         body.append(s)
     mod = ast.fix_missing_locations(ast.Module(body=body, type_ignores=[]))
     return compile(mod, path, "exec")
+
+
+def main_block(path: str):
+    """The body of the file's ``if __name__ == "__main__":`` block,
+    compiled: run it with ``exec`` in a namespace holding the names it
+    reads (a test's stand-ins for the solver among them)."""
+    _, tree = _tree(path)
+    block = next(n for n in tree.body if isinstance(n, ast.If)
+                 and "__main__" in ast.dump(n.test))
+    mod = ast.fix_missing_locations(ast.Module(body=block.body,
+                                               type_ignores=[]))
+    return compile(mod, path, "exec")
+
+
+def call_keywords(path: str, callee: str) -> list:
+    """The keyword arguments of every call of ``callee`` in the file, in
+    order: {keyword: its literal value, or its source where it is not a
+    literal}."""
+    src, tree = _tree(path)
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and getattr(n.func, "id", getattr(n.func, "attr", None))
+             == callee]
+    out = []
+    for c in sorted(calls, key=lambda c: (c.lineno, c.col_offset)):
+        kws = {}
+        for k in c.keywords:
+            try:
+                kws[k.arg] = ast.literal_eval(k.value)
+            except ValueError:
+                kws[k.arg] = ast.get_source_segment(src, k.value)
+        out.append(kws)
+    return out
 
 
 def dict_keys(path: str, func: str, name: str) -> set:
