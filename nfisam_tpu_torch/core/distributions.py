@@ -3,8 +3,8 @@
 Counterparts of ``nfisam_tpu/core/distributions.py``: the symmetric SPD
 square root that colours unit-normal noise, the standard-normal inverse
 CDF that maps uniform-cube samples, the whitened-residual log density,
-the multivariate normal and the ring (Gaussian radius around a centre,
-uniform angle).  Parameters are host numpy float64, as in the JAX
+the multivariate normal, the ring (Gaussian radius around a centre,
+uniform angle) and the finite Gaussian mixture.  Parameters are host numpy float64, as in the JAX
 package; every density and draw is a batched float32 tensor op on its
 input's device, and a draw takes a raw host key through a
 ``torch.Generator``.
@@ -53,6 +53,12 @@ def gaussian_rvs(key, mu: torch.Tensor, cov_sqrt: torch.Tensor,
     gen = torch_generator(key, mu.device)
     z = torch.randn((n, mu.shape[-1]), generator=gen, device=mu.device)
     return z @ cov_sqrt.T + mu
+
+
+def gaussian_unif_to_sample(u: torch.Tensor, mu: torch.Tensor,
+                            cov_sqrt: torch.Tensor) -> torch.Tensor:
+    """Uniform-cube samples (n, d) through the Gaussian inverse CDF."""
+    return norm_ppf(u) @ cov_sqrt.T + mu
 
 
 class HostConstants:
@@ -125,8 +131,8 @@ class GaussianDistribution(HostConstants):
 
     def unif_to_sample(self, u: torch.Tensor) -> torch.Tensor:
         """Uniform-cube samples through the Gaussian inverse CDF."""
-        return norm_ppf(u) @ self._const("cov_sqrt", u.device).T + \
-            self._const("mu", u.device)
+        return gaussian_unif_to_sample(u, self._const("mu", u.device),
+                                       self._const("cov_sqrt", u.device))
 
 
 class GaussianRangeDistribution(HostConstants):
@@ -173,3 +179,79 @@ class GaussianRangeDistribution(HostConstants):
     def unif_to_sample(self, u: torch.Tensor) -> torch.Tensor:
         r = self.sigma_sqrt * norm_ppf(u[..., 0]) + self.mu
         return self._ring(r, (u[..., 1] - 0.5) * 2.0 * math.pi)
+
+
+class GaussianMixtureDistribution(HostConstants):
+    """Finite Gaussian mixture: the components are stacked, so each
+    density, gradient and draw is one batched (n, k) computation."""
+
+    def __init__(self, weights, means, sigmas=None, precisions=None):
+        w = np.asarray(weights, dtype=np.float64)
+        if not np.isclose(w.sum(), 1.0):
+            raise ValueError("weights must sum to 1")
+        means = np.stack([np.asarray(m, dtype=np.float64).reshape(-1)
+                          for m in means])
+        if sigmas is not None:
+            covs = np.stack([np.asarray(c, dtype=np.float64) for c in sigmas])
+        elif precisions is not None:
+            covs = np.stack([np.linalg.inv(np.asarray(p, dtype=np.float64))
+                             for p in precisions])
+        else:
+            raise ValueError("Need sigmas or precisions")
+        self.weights = w
+        self.log_weights = np.log(w)
+        self.means = means
+        self.covs = covs
+        self.precisions = np.stack([np.linalg.inv(c) for c in covs])
+        self.prec_chols = np.stack([np.linalg.cholesky(p)
+                                    for p in self.precisions])
+        self.cov_sqrts = np.stack([spd_sqrt(c) for c in covs])
+        self.log_norms = -0.5 * (means.shape[1] * LOG_TWO_PI +
+                                 np.log(np.linalg.det(covs)))
+
+    @property
+    def dim(self) -> int:
+        return self.means.shape[1]
+
+    @property
+    def num_components(self) -> int:
+        return self.weights.shape[0]
+
+    def component_log_pdfs(self, x: torch.Tensor) -> torch.Tensor:
+        """(n, k) log densities of each component."""
+        delta = x[:, None, :] - self._const("means", x.device)[None]
+        white = torch.einsum("nkd,kde->nke", delta,
+                             self._const("prec_chols", x.device))
+        return self._const("log_norms", x.device) - \
+            0.5 * torch.sum(white * white, dim=-1)
+
+    def _weighted(self, x: torch.Tensor) -> torch.Tensor:
+        return self.component_log_pdfs(x) + \
+            self._const("log_weights", x.device)
+
+    def log_pdf(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.logsumexp(self._weighted(x), dim=-1)
+
+    def pdf(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.exp(self.log_pdf(x))
+
+    def grad_x_log_pdf(self, x: torch.Tensor) -> torch.Tensor:
+        """Each component's gradient weighted by its responsibility."""
+        resp = torch.softmax(self._weighted(x), dim=-1)
+        delta = x[:, None, :] - self._const("means", x.device)[None]
+        comp_grad = -torch.einsum("nkd,kde->nke", delta,
+                                  self._const("precisions", x.device))
+        return torch.sum(resp[..., None] * comp_grad, dim=1)
+
+    def rvs(self, key, num_samples: int, device) -> torch.Tensor:
+        """Draws on ``device``: a component by weight, then its Gaussian,
+        both from one ``torch.Generator`` seeded by the raw ``key``."""
+        gen = torch_generator(key, device)
+        comps = torch.multinomial(self._const("weights", device),
+                                  num_samples, replacement=True,
+                                  generator=gen)
+        z = torch.randn((num_samples, self.dim), generator=gen,
+                        device=device)
+        noise = torch.einsum("nd,nde->ne", z,
+                             self._const("cov_sqrts", device)[comps])
+        return self._const("means", device)[comps] + noise

@@ -56,9 +56,21 @@ class Variable:
         return self._dim - len(self._rot_dims)
 
     @property
+    def rotational_dim(self) -> int:
+        return len(self._rot_dims)
+
+    @property
     def circular_dim_list(self) -> List[bool]:
         """Per-dim circular flags; convention: translation dims first."""
         return [i in self._rot_dims for i in range(self._dim)]
+
+    @property
+    def t_dim_indices(self) -> List[int]:
+        return list(range(self.translational_dim))
+
+    @property
+    def R_dim_indices(self) -> List[int]:
+        return list(range(self.translational_dim, self._dim))
 
     # ------------------------------------------------------------ identity
     def __hash__(self) -> int:
@@ -130,3 +142,16 @@ def circular_dim_list(variables: Sequence[Variable]) -> List[bool]:
     for var in variables:
         out += var.circular_dim_list
     return out
+
+
+def file2vars(order_file: str, pose_space: str = "SE2") -> List[Variable]:
+    """Typed variables from a whitespace-separated ordering file: names
+    starting with ``L`` are R2 landmarks, the others poses in
+    ``pose_space`` ("SE2" or "R2"); ``#`` starts a comment."""
+    pose_class = {"SE2": SE2Variable, "R2": R2Variable}.get(pose_space)
+    if pose_class is None:
+        raise ValueError(f"Unknown pose space {pose_space}")
+    with open(order_file) as fh:
+        names = [n for line in fh for n in line.split("#")[0].split()]
+    return [R2Variable(name=n, variable_type=VariableType.Landmark)
+            if n[0] == "L" else pose_class(name=n) for n in names]

@@ -1,7 +1,8 @@
 from .ar_inverse import (ar_inverse_kernel, flow_inverse_masked_plain,
                          stack_inverse_masked_cuda,
                          stack_inverse_masked_plain)
-from .base_dist import BaseDistribution, von_mises_log_prob, von_mises_sample
+from .base_dist import (BaseDistribution, normal_sample, von_mises_log_prob,
+                        von_mises_sample)
 from .model import (CliqueFlowModel, compute_normalizer,
                     conditional_draw_core, negative_log_likelihood,
                     normalize, unnormalize)

@@ -81,10 +81,11 @@ def _staging(slots: int, d: int) -> str:
 
 class ARInverseKernel:
     """ctypes handles on the two built kernels, with their launch counts
-    (``variant_launches`` by variant, ``launches`` their sum) and the
-    (variant, n, d, h, K) of every launch since the process began or the
-    caller cleared it (``launched_shapes``, which the card's smoke check
-    holds against the plain version)."""
+    (``variant_launches`` by variant, ``launches`` their sum,
+    ``shape_launches`` by (variant, d, h, K)) and the (variant, n, d, h, K)
+    of every launch since the process began or the caller cleared it
+    (``launched_shapes``, which the card's smoke check holds against the
+    plain version)."""
 
     sources = {"specialized": os.path.join(CSRC_DIR, "ar_inverse.cu"),
                "generic": os.path.join(CSRC_DIR, "ar_inverse_generic.cu")}
@@ -93,6 +94,7 @@ class ARInverseKernel:
 
     def __init__(self) -> None:
         self.variant_launches = dict.fromkeys(VARIANTS, 0)
+        self.shape_launches: Dict[tuple, int] = {}
         self.launched_shapes: set = set()
         self._libs: Dict[str, ctypes.CDLL] = {}
         self._circular: Dict[tuple, torch.Tensor] = {}
@@ -103,6 +105,7 @@ class ARInverseKernel:
 
     def reset_launches(self) -> None:
         self.variant_launches = dict.fromkeys(VARIANTS, 0)
+        self.shape_launches = {}
 
     def load(self) -> None:
         """Build (both sources at once, in parallel) and load the kernels."""
@@ -214,6 +217,8 @@ class ARInverseKernel:
             raise RuntimeError(f"ar_inverse {variant} kernel launch failed "
                                f"at d={d}, h={h}, K={K}: cudaError_t {err}")
         self.variant_launches[variant] += 1
+        key = (variant, d, h, K)
+        self.shape_launches[key] = self.shape_launches.get(key, 0) + 1
         self.launched_shapes.add((variant, n, d, h, K))
         return out
 

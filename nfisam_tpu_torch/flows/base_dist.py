@@ -23,6 +23,11 @@ def normal_log_prob(z: torch.Tensor) -> torch.Tensor:
     return -0.5 * torch.sum(z * z + LOG_TWO_PI, dim=-1)
 
 
+def normal_sample(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """Standard-normal draws of ``shape`` on ``device`` from ``gen``."""
+    return torch.randn(tuple(shape), generator=gen, device=device)
+
+
 def von_mises_log_prob(theta: torch.Tensor) -> torch.Tensor:
     """von Mises(0, kappa=1) log density, elementwise."""
     return _VM_KAPPA * torch.cos(theta) - LOG_TWO_PI - _LOG_I0_1
@@ -83,8 +88,12 @@ class BaseDistribution:
                          dim=-1)
 
     def sample(self, gen: torch.Generator, n: int, device) -> torch.Tensor:
-        normal = torch.randn((n, self.dim), generator=gen, device=device)
+        normal = normal_sample(gen, (n, self.dim), device)
         if not self._any_circular:
             return normal
         vm = von_mises_sample(gen, (n, self.dim), device)
         return torch.where(self._mask(device), vm, normal)
+
+    def slice(self, start: int, stop: int) -> "BaseDistribution":
+        """The base distribution of dims ``start:stop``."""
+        return BaseDistribution(self.circular_mask[start:stop])

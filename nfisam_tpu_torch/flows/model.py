@@ -165,6 +165,14 @@ class CliqueFlowModel:
     def base(self) -> BaseDistribution:
         return BaseDistribution(self.cfg.circular_mask)
 
+    @property
+    def separator_base(self) -> BaseDistribution | None:
+        """The base distribution of the separator's dims (None without
+        a separator)."""
+        if self.aug_sep_dim == 0:
+            return None
+        return self.base.slice(0, self.aug_sep_dim)
+
     def with_separator_dim(self, aug_sep_dim: int) -> "CliqueFlowModel":
         """The same density with a different separator/frontal split."""
         return CliqueFlowModel(self.cfg, self.flow_params, self.mean,

@@ -33,6 +33,19 @@ class CliqueNode:
         child.parent = self
         return self
 
+    def detach_child(self, child: "CliqueNode") -> "CliqueNode":
+        self.children.remove(child)
+        child.parent = None
+        return self
+
+    @property
+    def is_leaf(self) -> bool:
+        return not self.children
+
+    @property
+    def is_root(self) -> bool:
+        return self.parent is None
+
     # ------------------------------------------------------------- content
     @property
     def vars(self) -> Set[Variable]:
@@ -115,6 +128,10 @@ class BayesTree:
             out.add(c)
             stack.extend(c.children)
         return out
+
+    @property
+    def leaves(self) -> Set[CliqueNode]:
+        return {c for c in self.clique_nodes if c.is_leaf}
 
     @property
     def frontal_vars(self) -> Set[Variable]:

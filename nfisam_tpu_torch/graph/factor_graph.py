@@ -50,6 +50,16 @@ class FactorGraph:
                     self._var_neighbors[v2].add(v1)
         return self
 
+    def neighbors(self, var: Variable) -> Set[Variable]:
+        return self._var_neighbors[var]
+
+    def factors_of(self, var: Variable) -> Set[Factor]:
+        """The factors on ``var`` (KeyError for a variable not in the
+        graph), found by a scan: the graph keeps no index of them."""
+        if var not in self._var_neighbors:
+            raise KeyError(var)
+        return {f for f in self._factors if var in f.vars}
+
     # -------------------------------------------------------- elimination
     def _symbolic_eliminate(self, var: Variable) -> None:
         """Remove ``var`` from the symbolic graph, fully connecting its

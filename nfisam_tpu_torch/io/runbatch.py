@@ -11,7 +11,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 from ..core.variables import Variable, VariableType
-from ..factors.factors import (BinaryFactor, Factor,
+from ..factors.factors import (BinaryFactor, Factor, PriorFactor,
                                SE2RelativeGaussianLikelihoodFactor,
                                UnaryFactor)
 from ..factors.mixtures import AmbiguousDataAssociationFactor
@@ -191,3 +191,34 @@ def _group_multirobot(nodes, factors, incremental_step):
             batches.append((list(new_vars), list(new_factors)))
             new_vars, new_factors = [], []
     return batches
+
+
+def inc_var_factor_to_dead_reckoning(
+        nodes_factors_by_step: List[StepBatch]) -> "np.ndarray":
+    """Dead-reckoned robot path from incremental batches: each SE(2)
+    prior starts a chain, each odometry factor from the chain's last pose
+    composes its mean onto it (float32, as the JAX package), with no
+    inference; returns the (T, 2) float64 x/y of the poses reached."""
+    import numpy as np
+    import torch
+
+    from ..core.geometry import se2_compose
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float32))
+
+    rbt_vars: List[Variable] = []
+    var2pose: Dict[Variable, torch.Tensor] = {}
+    for _, step_factors in nodes_factors_by_step:
+        for f in step_factors:
+            if isinstance(f, PriorFactor) and len(f.vars) == 1 and \
+                    f.vars[0].dim == 3:
+                var2pose[f.vars[0]] = f32(f.observation)
+                rbt_vars.append(f.vars[0])
+            elif isinstance(f, SE2RelativeGaussianLikelihoodFactor) and \
+                    rbt_vars and f.var1 == rbt_vars[-1]:
+                var2pose[f.var2] = se2_compose(var2pose[f.var1],
+                                               f32(f.observation))
+                rbt_vars.append(f.var2)
+    return np.asarray([var2pose[v][:2].numpy() for v in rbt_vars],
+                      dtype=np.float64).reshape(-1, 2)

@@ -31,6 +31,9 @@ gauge <= 2x that MAP's raw RMSE; flatness, the median step wall of the
 last quartile of steps <= 1.5x the second quartile's.  ``--defer-da``
 with ``--limit-steps`` defers over the whole stream and then cuts, as the
 JAX script does, and prints how many deferred mixtures the cut dropped.
+Beside the JAX script's result, a ``# run:`` line prints the kernel's
+launches by (kernel, d, h, K) and, on a card, the peak device memory the
+run allocated.
 """
 from __future__ import annotations
 
@@ -556,6 +559,16 @@ def result_record(tag, nodes, factors, batches, steps, m, solver, total_s,
     }
 
 
+def run_facts(shape_launches, peak_mem) -> dict:
+    """What the JAX script's result leaves out: the AR-inverse kernel's
+    launches by (kernel, d, h, K) and the peak device memory allocated
+    (bytes; None off a card)."""
+    return {"launches_by_shape": [
+                {"kernel": v, "d": d, "h": h, "K": K, "launches": c}
+                for (v, d, h, K), c in sorted(shape_launches.items())],
+            "peak_device_mem_bytes": peak_mem}
+
+
 def gate_failures(result: dict) -> list:
     """The JAX script's failed gates (:468-476), one line each."""
     fails = []
@@ -595,6 +608,10 @@ def solve_manhattan(args, **overrides) -> tuple:
                             device=device)
     floor = None if args.no_floor else IncrementalGaussNewtonMAP(
         device=device)
+    from ..flows import ar_inverse_kernel
+    before = dict(ar_inverse_kernel.shape_launches)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     steps, m, samples = run_manhattan(solver, floor, batches, device, truth,
                                       factors, args.err_every)
@@ -605,7 +622,11 @@ def solve_manhattan(args, **overrides) -> tuple:
               flush=True)
     result = result_record(tag, nodes, factors, batches, steps, m, solver,
                            total, args.rmse_bound, device.type)
-    from ..flows import ar_inverse_kernel
+    print("# run: " + json.dumps(run_facts(
+        {k: n - before.get(k, 0) for k, n in
+         ar_inverse_kernel.shape_launches.items() if n > before.get(k, 0)},
+        torch.cuda.max_memory_allocated(device)
+        if device.type == "cuda" else None)), flush=True)
     print(f"# ar_inverse launches by kernel "
           f"{ar_inverse_kernel.variant_launches}, at (kernel, n, d, h, K) "
           f"{sorted(ar_inverse_kernel.launched_shapes)}", flush=True)

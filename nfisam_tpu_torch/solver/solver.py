@@ -158,6 +158,10 @@ class FactorGraphSolver:
         return self._working_graph.vars
 
     @property
+    def working_factors(self) -> List[Factor]:
+        return self._working_graph.factors
+
+    @property
     def physical_bayes_tree(self) -> Optional[BayesTree]:
         return self._physical_bayes_tree
 

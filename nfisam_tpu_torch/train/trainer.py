@@ -244,6 +244,35 @@ def _row_shard(n: int, mesh, axis) -> tuple:
                           lambda t: all_reduce_sum(t, group))
 
 
+def fit_flow(key, samples_norm: torch.Tensor, cfg: NSFConfig,
+             tc: TrainConfig, mesh=None,
+             init_params: Optional[List[dict]] = None):
+    """Train a flow stack on pre-normalized samples, from ``init_params``
+    or from parameters drawn from the key.  The samples are shuffled by a
+    permutation from the key and, with ``training_set_frac < 1``, split
+    into training and held-out rows.  With a ``mesh`` of several ranks the
+    training rows are cut to a multiple of its ranks and split over them.
+    Returns (params, iter_loss (max_iters,), n_iters)."""
+    device = samples_norm.device
+    k_init, k_shuffle = split_host(key, 2)
+    if init_params is None:
+        init_params = init_flow_params(torch_generator(k_init, device), cfg,
+                                       device)
+    n = samples_norm.shape[0]
+    perm = torch.randperm(n, generator=torch_generator(k_shuffle, device),
+                          device=device)
+    samples_norm = samples_norm.to(torch.float32)[perm]
+    n_train = min(int(n * tc.training_set_frac), n)
+    train = samples_norm[:n_train]
+    test = samples_norm[n_train:] if n_train < n else None
+    shard = None
+    if mesh is not None and mesh.size > 1:
+        train = train[:(n_train // mesh.size) * mesh.size]
+        rows, shard = _row_shard(train.shape[0], mesh, None)
+        train = train[rows]
+    return train_flow(init_params, train, cfg, tc, test, shard)
+
+
 def fit_flow_raw(key, samples_raw: torch.Tensor, cfg: NSFConfig,
                  tc: TrainConfig, circular_dim_list,
                  scale_circular: bool = True, mesh=None):

@@ -38,6 +38,12 @@ class KeyStream:
         return self()
 
 
+def host_key(seed: int, counter: int = 0) -> np.ndarray:
+    """One raw ``[counter, seed]`` key, made on the host."""
+    return np.array([np.uint32(counter), np.uint32(seed & 0xFFFFFFFF)],
+                    dtype=np.uint32)
+
+
 def split_host(key, n: int = 2) -> np.ndarray:
     """Derive ``n`` independent raw keys from ``key`` with numpy
     arithmetic (the JAX package's stand-in for ``jax.random.split``)."""

@@ -88,8 +88,12 @@ def test_cuda_launch_counter_counts_each_flow(cuda):
     _, (cfg, params, z, xp, mask) = _case(
         ("two flows", 100, 16, 8, 9, 2, 3, ()))
     before = ar_inverse_kernel.launches
+    by_shape = ar_inverse_kernel.shape_launches.get(
+        ("specialized", 16, 8, 9), 0)
     stack_inverse_masked_cuda(params, z, xp, mask, cfg)
     assert ar_inverse_kernel.launches == before + 2
+    assert ar_inverse_kernel.shape_launches[
+        ("specialized", 16, 8, 9)] == by_shape + 2
 
 
 def test_cuda_kernel_raises_on_bad_inputs(cuda):
@@ -587,6 +591,57 @@ def test_cuda_one_ns_iteration(cuda):
 
 
 # ------------------------------------------------- two gloo ranks on one card
+def test_cuda_public_helpers_run_on_the_card(cuda):
+    """The JAX package's last public helpers in the port
+    (``tests/test_torch_helpers.py`` holds them against the JAX package on
+    the CPU) on card tensors against the same call on the CPU: geometry
+    and mixture densities to 1e-5, mixture and standard-normal draws in
+    distribution (5 standard errors), ``fit_flow`` from ``init_params``
+    (the graphed fit on the card, the eager one on the CPU) by its loss
+    curve to rtol 1e-3."""
+    from nfisam_tpu_torch.core import distributions, geometry
+    from nfisam_tpu_torch.flows import nsf, normal_sample
+    from nfisam_tpu_torch.train import TrainConfig, fit_flow
+    rng = np.random.default_rng(0)
+    p = torch.as_tensor(rng.normal(size=(256, 3)).astype(np.float32))
+    q = torch.as_tensor(rng.normal(size=(256, 3)).astype(np.float32))
+    for fn in (geometry.se2_grad_x_logmap, geometry.se2_grad_xi_expmap,
+               geometry.se2_grad_det_grad_logmap):
+        np.testing.assert_allclose(fn(p.to(cuda)).cpu().numpy(),
+                                   fn(p).numpy(), **TOL)
+    np.testing.assert_allclose(
+        geometry.se2_chordal_dist(p.to(cuda), q.to(cuda)).cpu().numpy(),
+        geometry.se2_chordal_dist(p, q).numpy(), **TOL)
+    mix = distributions.GaussianMixtureDistribution(
+        [0.3, 0.7], [np.zeros(3), np.ones(3) * 2.0],
+        [np.eye(3), np.diag([0.5, 1.0, 2.0])])
+    for method in (mix.log_pdf, mix.grad_x_log_pdf):
+        np.testing.assert_allclose(method(q.to(cuda)).cpu().numpy(),
+                                   method(q).numpy(), **TOL)
+    n = 40000
+    x = mix.rvs(np.array([1, 2], np.uint32), n, cuda).cpu().numpy()
+    mean = 0.7 * np.ones(3) * 2.0
+    var = np.array([0.3 * 1 + 0.7 * c for c in (0.5, 1.0, 2.0)]) + \
+        0.3 * 0.7 * 4.0
+    assert np.all(np.abs(x.mean(0) - mean) < 5 * np.sqrt(var / n))
+    z = normal_sample(torch.Generator(device=cuda).manual_seed(3), (n, 2),
+                      cuda).cpu().numpy()
+    assert np.abs(z.mean(0)).max() < 5 / np.sqrt(n)
+    cfg = nsf.NSFConfig(dim=3, num_knots=6, hidden_dim=8)
+    start = nsf.init_flow_params(torch.Generator().manual_seed(1), cfg,
+                                 "cpu")
+    data = p / p.std(0)
+    tc = TrainConfig(max_iters=40, learning_rate=0.01)
+    on_card = fit_flow(np.array([0, 0], np.uint32), data.to(cuda), cfg, tc,
+                       init_params=[{k: v.to(cuda) for k, v in f.items()}
+                                    for f in start])
+    on_cpu = fit_flow(np.array([0, 0], np.uint32), data, cfg, tc,
+                      init_params=start)
+    assert on_card[2] == on_cpu[2] == 40
+    np.testing.assert_allclose(on_card[1].cpu().numpy(), on_cpu[1].numpy(),
+                               rtol=1e-3)
+
+
 def _ranks(name, tmp):
     """Case ``name`` of ``torch_rank_cases`` in 2 rank processes sharing
     the card (gloo through the host, a (1, 2) mesh)."""

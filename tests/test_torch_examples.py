@@ -35,7 +35,13 @@ MAP, L1's share of samples above the x-axis at step 3; the band of
 ``ns_reference`` (keys [s, 7], s = 0-2: each step's joint MMD against
 ``data/case1_ref`` through the port's ``compute_mmd.mmds``) and
 ``generate_and_run`` (the graph at seed 1, solver seeds 0-2: the ``.fg``
-file's sha256 and the last step's translation RMSE).
+file's sha256 and the last step's translation RMSE).  ``python
+tests/test_torch_examples.py five_node-summary LOG ...`` reads the
+``five_node`` lines of both arms from their printed output and prints
+each step's spread, the Welch t and L1's sides (ROADMAP C9);
+``five_node-parts [JAX|port] SEED ...`` splits step 1's error into the
+fit's own (one draw of 20000) and the scatter of 40 draws of 500 on that
+fit.
 """
 import contextlib
 import io
@@ -744,7 +750,117 @@ def small_spread(examples, seeds) -> None:
                   f"{small_comparisons(example, p, j)}", flush=True)
 
 
+def five_node_parts(arm: str, seeds, repeats: int = 40,
+                    many: int = 20000) -> None:
+    """The parts of the five-node example's step-1 error, by package
+    (``arm``) and seed: steps 0-1 solved at the example's settings, then
+    ``repeats`` posterior draws of its 500 on that fit (the spread of
+    X1's mean over them, beside the spread independent draws would give)
+    and one draw of ``many`` (each pose's distance from the MAP: the fit's
+    own error, sampling noise aside)."""
+    import dataclasses
+    os.environ["NFISAM_PREWARM"] = "0"
+    args = dict(five_node_range_incremental.FIVE_NODE_ARGS)
+    t_steps = five_node_range_incremental.five_node_graph(tcore,
+                                                          tfactors)[:2]
+    nodes = [n for ns, _ in t_steps for n in ns]
+    est = map_estimate(nodes, [f for _, fs in t_steps for f in fs], "cpu")
+    poses = [str(v.name) for v in nodes if str(v.name)[0] == "X"]
+
+    def draw(solver):
+        out = solver.sample_posterior()
+        if hasattr(out, "materialize"):
+            out = out.materialize()
+        return {str(v.name): np.asarray(x.cpu() if torch.is_tensor(x)
+                                        else x) for v, x in out.items()}
+    for seed in seeds:
+        if arm == "JAX":
+            solver = JNFiSAM(JNFiSAMArgs(**args, seed=seed))
+            steps = five_node_range_incremental.five_node_graph(
+                jcore, jfactors)[:2]
+        else:
+            from nfisam_tpu_torch.solver import NFiSAM, NFiSAMArgs
+            solver = NFiSAM(NFiSAMArgs(**args, seed=seed), device="cpu")
+            steps = t_steps
+        for ns, fs in steps:
+            for n in ns:
+                solver.add_node(n)
+            for f in fs:
+                solver.add_factor(f)
+            solver.update_physical_and_working_graphs()
+            solver.fit_tree_density_models()
+            solver.sample_posterior()
+        means, std = [], None
+        for _ in range(repeats):
+            x1 = draw(solver)["X1"][:, :2]
+            means.append(x1.mean(0))
+            std = x1.std(0) / np.sqrt(x1.shape[0])
+        solver._args = dataclasses.replace(solver._args,
+                                           posterior_sample_num=many)
+        fit = map_distances(draw(solver), est, poses)[0]
+        print(f"{arm} five_node parts seed {seed}: " + json.dumps({
+            "x1_mean_spread": np.std(np.asarray(means, np.float64),
+                                     axis=0).round(5).tolist(),
+            "iid_spread": std.astype(np.float64).round(5).tolist(),
+            "fit_err": {k: round(v, 5) for k, v in fit.items()}}),
+            flush=True)
+
+
+def five_node_summary(paths) -> None:
+    """The per-seed lines ``reference("five_node", ...)`` printed into the
+    files ``paths``, side by side: each step's worst pose distance by
+    seed, each side's mean and standard deviation, the Welch t (port -
+    JAX), the port seeds above the JAX maximum, and L1's share above the
+    axis by seed; with ``five_node_parts``' lines, each side's step-1 fit
+    error and the scatter of its draws."""
+    rows, parts = {"JAX": {}, "port": {}}, {"JAX": {}, "port": {}}
+    pat = re.compile(r"^(JAX|port) five_node (parts )?seed (\d+): (\{.*\})$")
+    for path in paths:
+        for line in open(path):
+            m = pat.match(line.strip())
+            if m:
+                (parts if m.group(2) else rows)[m.group(1)][
+                    int(m.group(3))] = json.loads(m.group(4))
+    for arm, r in rows.items():
+        print(f"{arm} seeds {sorted(r)}")
+    n_steps = len(next(iter(rows["JAX"].values()))["pose_worst_by_step"])
+    for step in range(n_steps):
+        x = {arm: np.array([r[s]["pose_worst_by_step"][step]
+                            for s in sorted(r)]) for arm, r in rows.items()}
+        j, p = x["JAX"], x["port"]
+        t = (p.mean() - j.mean()) / np.sqrt(j.var(ddof=1) / j.size +
+                                            p.var(ddof=1) / p.size)
+        print(f"step {step}: JAX {j.mean():.4f} +- {j.std(ddof=1):.4f} "
+              f"(max {j.max():.4f}), port {p.mean():.4f} +- "
+              f"{p.std(ddof=1):.4f} (max {p.max():.4f}); Welch t {t:.2f}; "
+              f"port seeds above the JAX max: {int((p > j.max()).sum())}")
+        for arm in ("JAX", "port"):
+            print(f"  {arm}: " + " ".join(f"{v:.4f}" for v in x[arm]))
+    for arm, r in rows.items():
+        print(f"L1 above the axis, {arm}: " + " ".join(
+            f"{r[s]['l1_above']:.3f}" for s in sorted(r)))
+    for arm, r in parts.items():
+        if not r:
+            continue
+        fit = np.array([r[s]["fit_err"]["X1"] for s in sorted(r)])
+        ratio = np.array([np.divide(r[s]["x1_mean_spread"],
+                                    r[s]["iid_spread"]) for s in sorted(r)])
+        print(f"{arm} parts, seeds {sorted(r)}: X1's fit error "
+              f"{fit.mean():.4f} +- {fit.std(ddof=1):.4f} m; the spread of "
+              f"X1's 500-draw means over that of independent draws "
+              f"(x, y): mean {ratio.mean(0).round(3).tolist()}, range "
+              f"{ratio.min(0).round(2).tolist()} - "
+              f"{ratio.max(0).round(2).tolist()}")
+
+
 if __name__ == "__main__":
+    if sys.argv[1] == "five_node-summary":
+        five_node_summary(sys.argv[2:])
+        sys.exit(0)
+    if sys.argv[1] == "five_node-parts":
+        five_node_parts("port" if "port" in sys.argv[2:] else "JAX",
+                        [int(x) for x in sys.argv[2:] if x.isdigit()])
+        sys.exit(0)
     arm = "port" if "port" in sys.argv[2:] else "JAX"
     seeds = [int(s) for s in sys.argv[2:] if s.isdigit()]
     if sys.argv[1] == "small-spread":

@@ -254,9 +254,12 @@ HEADLINE_TINY = chip_smoke.MANHATTAN_G16_ARGV + [
     "--err-every", "2"]
 
 
-def test_three_cpu_steps_write_the_jax_scripts_keys(tmp_path, monkeypatch):
+def test_three_cpu_steps_write_the_jax_scripts_keys(tmp_path, monkeypatch,
+                                                   capsys):
     """Without ``--out`` the result lands in the temporary directory,
-    the JAX script's file name under this process's ``TMPDIR``."""
+    the JAX script's file name under this process's ``TMPDIR``; the
+    ``# run:`` line beside it has no launches and no device memory on the
+    CPU."""
     solver_args = msr.solver_args
     monkeypatch.setattr(msr, "solver_args", lambda a: {
         **solver_args(a), "posterior_sample_num": 50})
@@ -277,6 +280,35 @@ def test_three_cpu_steps_write_the_jax_scripts_keys(tmp_path, monkeypatch):
                for d, _, _ in row["buckets"])
     assert np.isfinite(r["trans_rmse"]) and np.isfinite(
         r["anchored_trans_rmse"])
+    run = [json.loads(line[len("# run: "):]) for line in
+           capsys.readouterr().out.splitlines() if line.startswith("# run: ")]
+    assert run == [{"launches_by_shape": [], "peak_device_mem_bytes": None}]
+
+
+def test_stream_curve_reads_a_result(tmp_path, capsys):
+    """``scripts/stream_curve`` on a result's rows: the split's totals,
+    the quarter medians, every K-th row and the last, each with the error
+    recorded at its step."""
+    from nfisam_tpu_torch.scripts import stream_curve
+    rows = [{"step": i, "wall": 1.0 + i, "surgery": 0.1, "fit": 0.5,
+             "posterior": 0.4 + i, "floor": 0.2, "n_vars": i + 2,
+             "launches": i + 1, "buckets": []} for i in range(10)]
+    path = tmp_path / "r.json"
+    path.write_text(json.dumps({"step_rows": rows, "err_curve": [
+        {"step": 0, "rmse": 5.0, "max": 9.0},
+        {"step": 9, "rmse": 4.0, "max": 8.0}]}))
+    assert stream_curve.main([str(path), "--every", "4"]) == 0
+    head, *curve = [json.loads(x) for x in
+                    capsys.readouterr().out.splitlines()]
+    assert head["steps"] == 10 and head["totals"]["launches"] == 55
+    np.testing.assert_allclose(
+        [head["totals"][k] for k in ("wall", "surgery", "fit", "posterior",
+                                     "floor")], [55.0, 1.0, 5.0, 49.0, 2.0])
+    assert head["quarter_median_wall"] == [1.5, 4.0, 6.5, 9.0]
+    assert [c["step"] for c in curve] == [0, 4, 8, 9]
+    assert curve[0]["err"] == {"rmse": 5.0, "max": 9.0}
+    assert curve[1]["err"] is None and curve[-1]["err"]["rmse"] == 4.0
+    assert "buckets" not in curve[0]
 
 
 def jax_loop_calls() -> tuple:
