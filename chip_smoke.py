@@ -1424,9 +1424,15 @@ def check_generic_vs_specialized(device) -> None:
                              f"rtol {KERNEL_TOL} ({worst[name]:.3e})")
 
 
+# the (variant, n, d, h, K) the children launched at, joined to this
+# process's ``launched_shapes`` by ``check_launched_shapes``
+CHILD_SHAPES: set = set()
+
+
 def check_launched_shapes(device) -> None:
     """Every (d, h, K) a path of this run launched a kernel at (the
-    wrapper's ``launched_shapes``, cleared after the kernel checks), held
+    wrapper's ``launched_shapes``, cleared after the kernel checks, and
+    the children's ``CHILD_SHAPES``), held
     against the plain version at the fewest and the most samples it was
     launched with (a third of the dims pinned, the middle one circular),
     where ``KERNEL_CASES`` has no case of that (n, d, h, K)."""
@@ -1434,7 +1440,8 @@ def check_launched_shapes(device) -> None:
 
     checked = {(n, d, h, K) for _, n, d, h, K, *_ in KERNEL_CASES}
     ns: dict = {}
-    for variant, n, d, h, K in ar_inverse_kernel.launched_shapes:
+    for variant, n, d, h, K in ar_inverse_kernel.launched_shapes | \
+            CHILD_SHAPES:
         ns.setdefault((variant, d, h, K), set()).add(n)
     cases = []
     for (variant, d, h, K), seen in sorted(ns.items()):
@@ -3151,7 +3158,7 @@ def manhattan_g16_readings(device, steps: int = MANHATTAN_G16_STEPS,
     from nfisam_tpu_torch.flows import ar_inverse_kernel
 
     ar_inverse_kernel.reset_launches()
-    ar_inverse_kernel.launched_shapes.clear()
+    ar_inverse_kernel.clear_shapes()
     t0 = time.perf_counter()
     _, steps_t, m, samples, solver = solve_manhattan(parse_args(
         MANHATTAN_G16_ARGV + ["--limit-steps", str(steps), "--device",
@@ -3249,7 +3256,7 @@ def plaza_family_readings(device, steps: dict = None, **overrides) -> dict:
     from nfisam_tpu_torch.flows import ar_inverse_kernel
 
     steps = steps or PLAZA_FAMILY_STEPS
-    ar_inverse_kernel.launched_shapes.clear()
+    ar_inverse_kernel.clear_shapes()
     streams = {}
     for label, (dataset, defer_da) in PLAZA_FAMILY.items():
         t0 = time.perf_counter()
@@ -3310,7 +3317,7 @@ def random_4x4_readings(device, files=RANDOM_4X4_FILES, limit_steps: int = 0,
     kernel readings on its final state (JSON-able)."""
     from nfisam_tpu_torch.flows import ar_inverse_kernel
 
-    ar_inverse_kernel.launched_shapes.clear()
+    ar_inverse_kernel.clear_shapes()
     out = {}
     for k in files:
         ar_inverse_kernel.reset_launches()
@@ -3374,7 +3381,7 @@ def manhattan_plaza_readings(device, steps: int = MANHATTAN_PLAZA_STEPS,
     on the final state (JSON-able)."""
     from nfisam_tpu_torch.flows import ar_inverse_kernel
 
-    ar_inverse_kernel.launched_shapes.clear()
+    ar_inverse_kernel.clear_shapes()
     ar_inverse_kernel.reset_launches()
     case_dir = tempfile.mkdtemp(prefix="manhattan_plaza_")
     try:
@@ -3454,7 +3461,7 @@ def oracle_lawnmower_readings(device, live_points: int = cdr.ORACLE_LIVE,
     from nfisam_tpu_torch.factors import BinaryFactorMixture
     from nfisam_tpu_torch.flows import ar_inverse_kernel
 
-    ar_inverse_kernel.launched_shapes.clear()
+    ar_inverse_kernel.clear_shapes()
     nodes, _, factors, _ = cdr.load_graph()
     weights, summ, oracle_s = cdr.oracle_weights(nodes, factors, device, 0,
                                                  live_points)
@@ -3538,7 +3545,7 @@ def examples_readings(device, ns_steps: int = NS_REFERENCE_STEPS,
     final state (JSON-able)."""
     from nfisam_tpu_torch.flows import ar_inverse_kernel
 
-    ar_inverse_kernel.launched_shapes.clear()
+    ar_inverse_kernel.clear_shapes()
     out = {}
     tmp = tempfile.mkdtemp(prefix="examples_")
 
@@ -3734,7 +3741,7 @@ def report_children(children: list) -> int:
     """Join the children, print their readings and fail on any gate: the
     dry runs gate themselves (a launch in every rank included); plaza1_
     ada0.2's fused pass and the runners' phases' gates (27-32) are held
-    here, and those children's launched shapes join this process's for
+    here, and those children's launched shapes join ``CHILD_SHAPES`` for
     ``check_launched_shapes``.  Returns the runners' phases' launches of
     the specialised kernel (0 if none was among the children)."""
     from nfisam_tpu_torch.flows import ar_inverse_kernel
@@ -3748,8 +3755,7 @@ def report_children(children: list) -> int:
         if label in reports:
             reports[label](r)
             runner_launches += r["launches"]["specialized"]
-            ar_inverse_kernel.launched_shapes.update(
-                tuple(s) for s in r["launched_shapes"])
+            CHILD_SHAPES.update(tuple(s) for s in r["launched_shapes"])
             if "child_s" in r:
                 log(f"{label}: {r['child_s']:.1f} s of the phase in the "
                     f"child")
@@ -3762,8 +3768,7 @@ def report_children(children: list) -> int:
             if not r["fused_vs_walk"] <= FUSED_TOL:
                 raise SystemExit("plaza1_ada0.2: the fused posterior pass "
                                  "disagrees with the per-clique walk")
-            ar_inverse_kernel.launched_shapes.update(
-                tuple(s) for s in r["launched_shapes"])
+            CHILD_SHAPES.update(tuple(s) for s in r["launched_shapes"])
         else:
             launches = r["launches"]
             log(f"{label}: ar_inverse launches by process {launches}; "
@@ -3822,7 +3827,7 @@ def main() -> int:
     check_generator_seed(device)
     log_elapsed(t_start)
     from nfisam_tpu_torch.flows import ar_inverse_kernel
-    ar_inverse_kernel.launched_shapes.clear()
+    ar_inverse_kernel.clear_shapes()
     # the kernels were timed above, alone on the card; from here on child
     # processes may share it
     child_tmp = tempfile.mkdtemp(prefix="chip_smoke_")

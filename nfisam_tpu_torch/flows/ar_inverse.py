@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+from collections import Counter
 from typing import Dict, List
 
 import torch
@@ -80,10 +81,12 @@ def _staging(slots: int, d: int) -> str:
 
 
 class ARInverseKernel:
-    """ctypes handles on the two built kernels, with their launch counts
-    (``variant_launches`` by variant, ``launches`` their sum,
-    ``shape_launches`` by (variant, d, h, K)) and the (variant, n, d, h, K)
-    of every launch since the process began or the caller cleared it
+    """ctypes handles on the two built kernels, with one count of their
+    launches by (variant, n, d, h, K) since the process began
+    (``counts``).  From it: since the last ``reset_launches``,
+    ``launches`` (all), ``variant_launches`` (by variant) and
+    ``shape_launches`` (by (variant, d, h, K)); since the last
+    ``clear_shapes``, the (variant, n, d, h, K) launched
     (``launched_shapes``, which the card's smoke check holds against the
     plain version)."""
 
@@ -93,19 +96,48 @@ class ARInverseKernel:
                "generic": "nfisam_ar_inverse_generic"}
 
     def __init__(self) -> None:
-        self.variant_launches = dict.fromkeys(VARIANTS, 0)
-        self.shape_launches: Dict[tuple, int] = {}
-        self.launched_shapes: set = set()
+        self.counts: Counter = Counter()
+        # ``counts`` at the last ``reset_launches`` / ``clear_shapes``
+        self._launch_mark: Counter = Counter()
+        self._shape_mark: Counter = Counter()
         self._libs: Dict[str, ctypes.CDLL] = {}
         self._circular: Dict[tuple, torch.Tensor] = {}
 
+    def _since(self, mark: Counter) -> Dict[tuple, int]:
+        return {k: c - mark.get(k, 0) for k, c in self.counts.items()
+                if c > mark.get(k, 0)}
+
     @property
     def launches(self) -> int:
-        return sum(self.variant_launches.values())
+        return sum(self.counts.values()) - sum(self._launch_mark.values())
+
+    @property
+    def variant_launches(self) -> Dict[str, int]:
+        out = dict.fromkeys(VARIANTS, 0)
+        for (variant, *_), c in self._since(self._launch_mark).items():
+            out[variant] += c
+        return out
+
+    @property
+    def shape_launches(self) -> Dict[tuple, int]:
+        out: Dict[tuple, int] = {}
+        for (variant, _, d, h, K), c in self._since(
+                self._launch_mark).items():
+            out[(variant, d, h, K)] = out.get((variant, d, h, K), 0) + c
+        return out
+
+    @property
+    def launched_shapes(self) -> set:
+        return set(self._since(self._shape_mark))
 
     def reset_launches(self) -> None:
-        self.variant_launches = dict.fromkeys(VARIANTS, 0)
-        self.shape_launches = {}
+        """Count ``launches``, ``variant_launches`` and ``shape_launches``
+        from zero again."""
+        self._launch_mark = Counter(self.counts)
+
+    def clear_shapes(self) -> None:
+        """Gather ``launched_shapes`` from nothing again."""
+        self._shape_mark = Counter(self.counts)
 
     def load(self) -> None:
         """Build (both sources at once, in parallel) and load the kernels."""
@@ -216,10 +248,7 @@ class ARInverseKernel:
         if err != 0:
             raise RuntimeError(f"ar_inverse {variant} kernel launch failed "
                                f"at d={d}, h={h}, K={K}: cudaError_t {err}")
-        self.variant_launches[variant] += 1
-        key = (variant, d, h, K)
-        self.shape_launches[key] = self.shape_launches.get(key, 0) + 1
-        self.launched_shapes.add((variant, n, d, h, K))
+        self.counts[(variant, n, d, h, K)] += 1
         return out
 
 

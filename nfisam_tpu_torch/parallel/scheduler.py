@@ -40,6 +40,7 @@ from ..graph.bayes_tree import CliqueNode
 from ..solver.checkpoint import content_tag
 from ..solver.nfisam import FlowModelAdapter, NFiSAM, NFiSAMArgs
 from ..train.trainer import fit_flow_raw, fit_flows_batched
+from ..utils.tracing import tracer
 from .multihost import host_parallel_enabled, train_chunked
 
 # the largest bucket trained in one loop; bigger buckets train in chunks
@@ -85,45 +86,51 @@ class ParallelNFiSAM(NFiSAM):
         seconds and each chunk's seconds since its bucket began;
         ``clique_dim_timer`` a [dim, seconds since the fit began] pair as
         each trained clique is done."""
-        self._temp_training_loss = {}
-        self._evict_stale_value_matches()
-        ordering = self._working_bayes_tree.clique_ordering()
-        t_begin = self._clock() if clique_dim_timer is not None else 0.0
-        for wave in wavefronts(ordering, self._clique_density_model):
-            # ---- load or simulate every clique of the wave --------------
-            sims = []
-            for clique in wave:
-                restored = self.try_load_clique_model(clique)
-                if restored is not None:
-                    model, self._clique_true_obs[clique] = restored
-                    self._clique_density_model[clique] = model
+        with tracer.span("fit"):
+            self._temp_training_loss = {}
+            self._evict_stale_value_matches()
+            ordering = self._working_bayes_tree.clique_ordering()
+            t_begin = self._clock() if clique_dim_timer is not None else 0.0
+            for wave in wavefronts(ordering, self._clique_density_model):
+                with tracer.span("fit.wave", cliques=len(wave)):
+                    self._fit_wave(wave, timer, clique_dim_timer, t_begin)
+
+    def _fit_wave(self, wave: List[CliqueNode], timer, clique_dim_timer,
+                  t_begin: float) -> None:
+        """One wave of ``fit_tree_density_models``."""
+        # ---- load or simulate every clique of the wave ------------------
+        sims = []
+        for clique in wave:
+            restored = self.try_load_clique_model(clique)
+            if restored is not None:
+                model, self._clique_true_obs[clique] = restored
+                self._clique_density_model[clique] = model
+                with tracer.span("fit.finish"):
                     self._finish_clique(clique, model)
-                    continue
-                t0 = self._clock() if timer is not None else 0.0
-                samples, var_ordering, true_obs = \
-                    self.clique_training_sampler(
-                        clique, num_samples=self._args.local_sample_num)
-                if timer is not None:
-                    timer.append(self._clock() - t0)
-                self._clique_true_obs[clique] = true_obs
-                sims.append((clique, samples, var_ordering))
+                continue
+            samples, var_ordering, true_obs = self.clique_training_sampler(
+                clique, num_samples=self._args.local_sample_num, timer=timer)
+            self._clique_true_obs[clique] = true_obs
+            sims.append((clique, samples, var_ordering))
 
-            # ---- bucket by padded dim and sample count ------------------
-            buckets: Dict[Tuple, List] = {}
-            for clique, samples, var_ordering in sims:
-                circ = circular_dim_list(var_ordering)
-                samples, pad = self._pad_samples(samples.to(torch.float32))
-                key = (samples.shape[-1], samples.shape[0])
-                if self._args.flow_type == "NSF_AR_CS":
-                    # the circular-spline routing is part of the flow's
-                    # config, so such buckets share the circular pattern
-                    key = key + (tuple(circ) + (False,) * pad,)
-                buckets.setdefault(key, []).append(
-                    (clique, samples, var_ordering, circ, pad))
+        # ---- bucket by padded dim and sample count ----------------------
+        buckets: Dict[Tuple, List] = {}
+        for clique, samples, var_ordering in sims:
+            circ = circular_dim_list(var_ordering)
+            samples, pad = self._pad_samples(samples.to(torch.float32))
+            key = (samples.shape[-1], samples.shape[0])
+            if self._args.flow_type == "NSF_AR_CS":
+                # the circular-spline routing is part of the flow's
+                # config, so such buckets share the circular pattern
+                key = key + (tuple(circ) + (False,) * pad,)
+            buckets.setdefault(key, []).append(
+                (clique, samples, var_ordering, circ, pad))
 
-            for (aug_dim, n, *_), items in buckets.items():
-                self.bucket_log.append((aug_dim, n, len(items)))
-                t0 = self._clock() if timer is not None else 0.0
+        for (aug_dim, n, *_), items in buckets.items():
+            self.bucket_log.append((aug_dim, n, len(items)))
+            t0 = self._clock() if timer is not None else 0.0
+            with tracer.span("fit.bucket", dim=aug_dim, n=n, size=len(items),
+                             lone=len(items) == 1):
                 cfg = self._flow_config(
                     aug_dim, list(items[0][3]) + [False] * items[0][4])
                 # chunking across ranks splits the whole bucket itself
@@ -136,8 +143,8 @@ class ParallelNFiSAM(NFiSAM):
                         timer.append(self._clock() - t0)
                     if clique_dim_timer is not None:
                         done = self._clock() - t_begin
-                        clique_dim_timer.extend([item[0].dim, done]
-                                                for item in items[i:i + size])
+                        clique_dim_timer.extend(
+                            [item[0].dim, done] for item in items[i:i + size])
 
     def _fit_bucket_chunk(self, items, cfg, aug_dim: int, n: int) -> None:
         tc = self._args.train_config()
@@ -175,13 +182,14 @@ class ParallelNFiSAM(NFiSAM):
 
         for clique, circ, pad, params, iter_loss, n_iters, mean, std, key \
                 in fitted:
-            aug_sep_dim = aug_dim - pad - clique.frontal_dim
-            model = CliqueFlowModel(
-                cfg, params, mean, std, circ, aug_sep_dim, pad_dims=pad,
-                content_tag=content_tag(key, cfg, (n, aug_dim)))
-            adapter = FlowModelAdapter(model, self._next_key,
-                                       mesh=self._args.sample_mesh)
             self._record_training_loss(clique, iter_loss, n_iters)
-            self._save_clique_model(clique, model)
-            self._clique_density_model[clique] = adapter
-            self._finish_clique(clique, adapter)
+            with tracer.span("fit.finish"):
+                aug_sep_dim = aug_dim - pad - clique.frontal_dim
+                model = CliqueFlowModel(
+                    cfg, params, mean, std, circ, aug_sep_dim, pad_dims=pad,
+                    content_tag=content_tag(key, cfg, (n, aug_dim)))
+                adapter = FlowModelAdapter(model, self._next_key,
+                                           mesh=self._args.sample_mesh)
+                self._save_clique_model(clique, model)
+                self._clique_density_model[clique] = adapter
+                self._finish_clique(clique, adapter)

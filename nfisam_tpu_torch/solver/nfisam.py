@@ -27,6 +27,7 @@ from ..graph.bayes_tree import CliqueNode
 from ..samplers.simulation import compile_schedule
 from ..train.trainer import TrainConfig, fit_flow_raw
 from ..utils.keys import torch_generator
+from ..utils.tracing import tracer
 from .checkpoint import CliqueModelStore, clique_signature, content_tag
 from .solver import (CliqueSeparatorFactor, ConditionalSampler,
                      FactorGraphSolver, SolverArgs)
@@ -298,10 +299,13 @@ class NFiSAM(FactorGraphSolver):
 
     def _record_training_loss(self, clique, iter_loss, n_iters) -> None:
         """Keep the clique's loss curve (on its device) for
-        ``training_losses``; write it to ``training_loss_dir`` if that is
-        a directory."""
+        ``training_losses``, count it in the tracer's ``cliques_trained``
+        and its iterations in ``adam_iters``; write it to
+        ``training_loss_dir`` if that is a directory."""
         clique_name = "".join(sorted(str(v.name) for v in clique.vars))
         self._temp_training_loss[clique_name] = (iter_loss, n_iters)
+        tracer.count("cliques_trained")
+        tracer.count("adam_iters", int(n_iters))
         loss_dir = self._args.training_loss_dir
         if loss_dir is not None and os.path.isdir(loss_dir):
             np.savetxt(os.path.join(loss_dir, f"{clique_name}.txt"),
@@ -358,13 +362,13 @@ class NFiSAM(FactorGraphSolver):
         cfg = self._flow_config(samples.shape[-1], padded_circ)
 
         key = self._next_key()
-        t0 = self._clock() if timer is not None else 0.0
-        params, iter_loss, n_iters, mean, std = fit_flow_raw(
-            key, samples, cfg, self._args.train_config(),
-            padded_circ, scale_circular=(self._args.flow_type == "NSF_AR"),
-            mesh=self._args.data_parallel_mesh)
-        if timer is not None:
-            timer.append(self._clock() - t0)
+        with self._phase("fit.bucket", timer, dim=cfg.dim,
+                         n=samples.shape[0], size=1, lone=True):
+            params, iter_loss, n_iters, mean, std = fit_flow_raw(
+                key, samples, cfg, self._args.train_config(),
+                padded_circ,
+                scale_circular=(self._args.flow_type == "NSF_AR"),
+                mesh=self._args.data_parallel_mesh)
         self._record_training_loss(clique, iter_loss, n_iters)
         model = CliqueFlowModel(cfg, params, mean, std, circ,
                                 aug_sep_dim, pad_dims=pad,

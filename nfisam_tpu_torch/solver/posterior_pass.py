@@ -56,6 +56,7 @@ from ..flows.model import (CliqueFlowModel, _select_inverse_fn,
                            conditional_draw_core)
 from ..graph.bayes_tree import CliqueNode
 from ..utils.keys import torch_generator
+from ..utils.tracing import tracer
 
 
 def topological_cliques(root: CliqueNode) -> List[CliqueNode]:
@@ -154,6 +155,29 @@ def fused_sample_posterior(solver, num_samples: int
     """Run the fused pass over ``solver``'s physical tree.  Returns the
     samples, or None if some clique's model is not a ``CliqueFlowModel``
     (the caller then walks clique by clique)."""
+    with tracer.span("posterior.plan"):
+        plan, col_of = _solver_plan(solver)
+    if plan is None:
+        return None
+    mesh = getattr(solver._args, "sample_mesh", None)
+    rows = slice(None)
+    if mesh is not None and mesh.shape["data"] > 1 and \
+            num_samples % mesh.shape["data"] == 0:
+        rows = mesh.rows(num_samples)
+    with tracer.span("posterior.draw"):
+        buffer = run_plan(plan, solver._next_key, num_samples,
+                          solver.device, rows)
+    n_local = buffer.shape[0]
+    if n_local != num_samples:
+        from ..parallel.mesh import all_gather_rows
+        buffer = all_gather_rows(buffer, mesh.group("data"))
+    return LazySamples(buffer, col_of, shard_rows=n_local)
+
+
+def _solver_plan(solver) -> tuple:
+    """(``FusedPlan`` of ``solver``'s physical tree, variable -> first
+    buffer column), or (None, None) if some clique's model is not a
+    ``CliqueFlowModel``."""
     specs = []
     col_of: Dict = {}        # variable -> first buffer column
     D = 0
@@ -161,7 +185,7 @@ def fused_sample_posterior(solver, num_samples: int
         model = getattr(solver._clique_density_model.get(clique), "model",
                         None)
         if not isinstance(model, CliqueFlowModel):
-            return None
+            return None, None
         frontal_list = sorted(
             clique.frontal, key=lambda v: solver._reverse_ordering_map[v])
         separator_list = sorted(
@@ -176,20 +200,7 @@ def fused_sample_posterior(solver, num_samples: int
         sep_cols = [c for v in separator_list
                     for c in range(col_of[v], col_of[v] + v.dim)]
         specs.append((model, obs, sep_cols, first, D - first))
-
-    device = solver.device
-    plan = pack_plan(specs, D, device)
-    mesh = getattr(solver._args, "sample_mesh", None)
-    rows = slice(None)
-    if mesh is not None and mesh.shape["data"] > 1 and \
-            num_samples % mesh.shape["data"] == 0:
-        rows = mesh.rows(num_samples)
-    buffer = run_plan(plan, solver._next_key, num_samples, device, rows)
-    n_local = buffer.shape[0]
-    if n_local != num_samples:
-        from ..parallel.mesh import all_gather_rows
-        buffer = all_gather_rows(buffer, mesh.group("data"))
-    return LazySamples(buffer, col_of, shard_rows=n_local)
+    return pack_plan(specs, D, solver.device), col_of
 
 
 class LazySamples(Mapping):

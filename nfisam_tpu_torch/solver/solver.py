@@ -17,6 +17,7 @@ variable.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from collections.abc import Mapping
@@ -37,6 +38,7 @@ from ..graph.factor_graph import FactorGraph, pose_first_ordering
 from ..samplers.simulation import SimulationBasedSampler
 from ..utils.device import resolve_device
 from ..utils.keys import KeyStream
+from ..utils.tracing import tracer
 from .posterior_pass import fused_sample_posterior, topological_cliques
 
 # mode repair: posterior rows the check reads; a new range contradicts its
@@ -141,6 +143,18 @@ class FactorGraphSolver:
             torch.cuda.synchronize(self.device)
         return time.perf_counter()
 
+    @contextlib.contextmanager
+    def _phase(self, name: str, timer: Optional[List[float]] = None,
+               **attrs):
+        """``tracer.span(name, **attrs)``, and with a ``timer`` its
+        seconds up to a synchronize (``_clock``) appended at the end: one
+        set of boundaries for the span and the timer."""
+        t0 = self._clock() if timer is not None else 0.0
+        with tracer.span(name, **attrs) as rec:
+            yield rec
+        if timer is not None:
+            timer.append(self._clock() - t0)
+
     @property
     def elimination_ordering(self) -> List[Variable]:
         return self._elimination_ordering
@@ -207,8 +221,17 @@ class FactorGraphSolver:
             self, timer: Optional[List[float]] = None
     ) -> "FactorGraphSolver":
         """Fold new nodes/factors in, rebuild the working tree over affected
-        variables, recycle untouched models; ``timer`` gets the seconds."""
-        start = self._clock() if timer is not None else 0.0
+        variables, recycle untouched models; ``timer`` gets the seconds.
+        Opens the tracer's row of a new step."""
+        tracer.begin_step()
+        with self._phase("surgery", timer) as rec:
+            self._update_graphs()
+            if rec is not None:
+                rec["cliques"] = len(self._working_bayes_tree.clique_nodes)
+        return self
+
+    def _update_graphs(self) -> None:
+        """``update_physical_and_working_graphs``'s work."""
         old_nodes = set(self.physical_vars)
         touched = set()
         for f in self._new_factors:
@@ -275,9 +298,6 @@ class FactorGraphSolver:
 
         self._new_nodes = []
         self._new_factors = []
-        if timer is not None:
-            timer.append(self._clock() - start)
-        return self
 
     def _mode_contradicted_vars(self, old_nodes) -> set:
         """Old variables whose committed posterior the NEW evidence cannot
@@ -514,32 +534,33 @@ class FactorGraphSolver:
         """Leaves-to-root clique loop: load from the checkpoint store or
         simulate and fit, push the separator marginal up as a prior
         factor.  Timers as ``incremental_inference``'s."""
-        self._temp_training_loss = {}
-        self._evict_stale_value_matches()
-        clique_ordering = self._working_bayes_tree.clique_ordering()
-        t_begin = self._clock() if clique_dim_timer is not None else 0.0
-        while clique_ordering:
-            clique = clique_ordering.pop()
-            if clique not in self._clique_density_model:
-                restored = self.try_load_clique_model(clique)
-                if restored is not None:
-                    model, true_obs = restored
-                else:
-                    t0 = self._clock() if timer is not None else 0.0
-                    local_samples, sample_var_ordering, true_obs = \
-                        self.clique_training_sampler(
-                            clique, num_samples=self._args.local_sample_num)
-                    if timer is not None:
-                        timer.append(self._clock() - t0)
-                    model = self.fit_clique_density_model(
-                        clique=clique, samples=local_samples,
-                        var_ordering=sample_var_ordering, timer=timer)
-                self._clique_true_obs[clique] = true_obs
-                self._clique_density_model[clique] = model
-                self._finish_clique(clique, model)
-            if clique_dim_timer is not None:
-                clique_dim_timer.append([clique.dim,
-                                         self._clock() - t_begin])
+        with tracer.span("fit"):
+            self._temp_training_loss = {}
+            self._evict_stale_value_matches()
+            clique_ordering = self._working_bayes_tree.clique_ordering()
+            t_begin = self._clock() if clique_dim_timer is not None else 0.0
+            while clique_ordering:
+                clique = clique_ordering.pop()
+                if clique not in self._clique_density_model:
+                    restored = self.try_load_clique_model(clique)
+                    if restored is not None:
+                        model, true_obs = restored
+                    else:
+                        local_samples, sample_var_ordering, true_obs = \
+                            self.clique_training_sampler(
+                                clique,
+                                num_samples=self._args.local_sample_num,
+                                timer=timer)
+                        model = self.fit_clique_density_model(
+                            clique=clique, samples=local_samples,
+                            var_ordering=sample_var_ordering, timer=timer)
+                    self._clique_true_obs[clique] = true_obs
+                    self._clique_density_model[clique] = model
+                    with tracer.span("fit.finish"):
+                        self._finish_clique(clique, model)
+                if clique_dim_timer is not None:
+                    clique_dim_timer.append([clique.dim,
+                                             self._clock() - t_begin])
 
     def _finish_clique(self, clique: CliqueNode, model) -> None:
         """Push the clique's separator marginal up as a prior factor and
@@ -555,10 +576,16 @@ class FactorGraphSolver:
         self._working_graph = self._working_graph.without_clique(
             clique=clique, new_factor=new_sep_factor)
 
-    def clique_training_sampler(self, clique: CliqueNode, num_samples: int):
+    def clique_training_sampler(self, clique: CliqueNode, num_samples: int,
+                                timer: Optional[List[float]] = None):
         """Training samples for one clique, by ``local_sampling_method``:
         (samples on the solver's device, their variable order, the
-        observations the samples leave unused)."""
+        observations the samples leave unused); ``timer`` gets the
+        seconds."""
+        with self._phase("fit.simulate", timer, dim=clique.dim):
+            return self._clique_samples(clique, num_samples)
+
+    def _clique_samples(self, clique: CliqueNode, num_samples: int):
         subgraph = self._working_graph.clique_subgraph(clique)
         pattern = self._working_bayes_tree.clique_variable_pattern(clique)
         method = self._args.local_sampling_method
@@ -583,13 +610,11 @@ class FactorGraphSolver:
         flow, else the per-clique walk.  Returns Variable -> (n, dim)
         tensors on the solver's device; the fused pass's are read-only
         views of one buffer.  ``timer`` gets the seconds."""
-        start = self._clock() if timer is not None else 0.0
-        samples = fused_sample_posterior(self,
-                                         self._args.posterior_sample_num)
-        if samples is None:
-            samples = self.sample_posterior_per_clique()
-        if timer is not None:
-            timer.append(self._clock() - start)
+        with self._phase("posterior", timer):
+            samples = fused_sample_posterior(self,
+                                             self._args.posterior_sample_num)
+            if samples is None:
+                samples = self.sample_posterior_per_clique()
         return samples
 
     def training_losses(self) -> Dict[str, List[float]]:

@@ -45,6 +45,7 @@ from ..flows.model import (compute_normalizer, negative_log_likelihood,
                            normalize)
 from ..flows.nsf import PARAM_NAMES, NSFConfig, init_flow_params
 from ..utils.keys import split_host, torch_generator
+from ..utils.tracing import tracer
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -113,18 +114,20 @@ class _GraphedLossGrad:
     captured raises: nothing falls back to the eager loop."""
 
     def __init__(self, loss_fn: Callable, flat: torch.Tensor):
-        stream = torch.cuda.current_stream(flat.device)
-        side = torch.cuda.Stream(flat.device)
-        side.wait_stream(stream)
-        with torch.cuda.stream(side):    # warm-up, off the fit's state
-            probe = flat.detach().clone().requires_grad_(True)
-            torch.autograd.grad(loss_fn(probe), probe)
-        stream.wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            loss = loss_fn(flat)
-            (self.grad,) = torch.autograd.grad(loss, flat)
-        self.loss = loss.detach()
+        with tracer.span("train.capture"):
+            stream = torch.cuda.current_stream(flat.device)
+            side = torch.cuda.Stream(flat.device)
+            side.wait_stream(stream)
+            with torch.cuda.stream(side):    # warm-up, off the fit's state
+                probe = flat.detach().clone().requires_grad_(True)
+                torch.autograd.grad(loss_fn(probe), probe)
+            stream.wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                loss = loss_fn(flat)
+                (self.grad,) = torch.autograd.grad(loss, flat)
+            self.loss = loss.detach()
+        tracer.count("graph_captures")
 
     def __call__(self) -> tuple:
         """(loss, gradient) at ``flat``'s current value: the graph's
@@ -156,49 +159,53 @@ def train_flow(flow_params: List[dict], data: torch.Tensor, cfg: NSFConfig,
         graphed = _GraphedLossGrad(
             lambda v: negative_log_likelihood(unravel(v), data, cfg, base),
             flat)
-    t = 0
-    while t < tc.max_iters:
-        if test_data is not None:
-            if (t + 1) % tc.validation_interval == 0 and slow < 0:
-                with torch.no_grad():
-                    val = float(negative_log_likelihood(
-                        unravel(flat), test_data, cfg, base))
-                if val > last_val:
-                    slow = slower_stop_iteration(tc, t)
-                else:
-                    last_val = val
-            stop = slow >= 0 and t + 1 >= slow
-        elif t % w == 0 and t >= 2 * w:
-            cur = iter_loss[t - w:t].mean()
-            prev = iter_loss[t - 2 * w:t - w].mean()
-            prev = torch.where(prev == 0.0, torch.ones_like(prev), prev)
-            stop = float(torch.abs(1.0 - cur / prev)) < tc.loss_delta_tol
-        else:
-            stop = False
-        if stop:
-            # stopping iteration: no update, loss curve kept continuous
-            iter_loss[t] = iter_loss[max(t - 1, 0)]
+    with tracer.span("train.loop") as rec:
+        t = 0
+        while t < tc.max_iters:
+            if test_data is not None:
+                if (t + 1) % tc.validation_interval == 0 and slow < 0:
+                    with torch.no_grad():
+                        val = float(negative_log_likelihood(
+                            unravel(flat), test_data, cfg, base))
+                    if val > last_val:
+                        slow = slower_stop_iteration(tc, t)
+                    else:
+                        last_val = val
+                stop = slow >= 0 and t + 1 >= slow
+            elif t % w == 0 and t >= 2 * w:
+                cur = iter_loss[t - w:t].mean()
+                prev = iter_loss[t - 2 * w:t - w].mean()
+                prev = torch.where(prev == 0.0, torch.ones_like(prev), prev)
+                stop = float(torch.abs(1.0 - cur / prev)) < \
+                    tc.loss_delta_tol
+            else:
+                stop = False
+            if stop:
+                # stopping iteration: no update, loss curve kept continuous
+                iter_loss[t] = iter_loss[max(t - 1, 0)]
+                t += 1
+                break
+            if graphed is not None:
+                loss, grad = graphed()
+            else:
+                loss = negative_log_likelihood(unravel(flat), data, cfg, base)
+                (grad,) = torch.autograd.grad(loss, flat)
+            if shard is not None:
+                both = shard.reduce(torch.cat([grad, loss.detach()[None]]) *
+                                    shard.scale)
+                grad, loss = both[:-1], both[-1]
+            with torch.no_grad():
+                step = t + 1
+                mu.mul_(ADAM_B1).add_(grad, alpha=1.0 - ADAM_B1)
+                nu.mul_(ADAM_B2).addcmul_(grad, grad, value=1.0 - ADAM_B2)
+                mu_hat = mu / (1.0 - ADAM_B1 ** step)
+                nu_hat = nu / (1.0 - ADAM_B2 ** step)
+                flat -= tc.learning_rate * mu_hat / (torch.sqrt(nu_hat) +
+                                                     ADAM_EPS)
+                iter_loss[t] = loss.detach()
             t += 1
-            break
-        if graphed is not None:
-            loss, grad = graphed()
-        else:
-            loss = negative_log_likelihood(unravel(flat), data, cfg, base)
-            (grad,) = torch.autograd.grad(loss, flat)
-        if shard is not None:
-            both = shard.reduce(torch.cat([grad, loss.detach()[None]]) *
-                                shard.scale)
-            grad, loss = both[:-1], both[-1]
-        with torch.no_grad():
-            step = t + 1
-            mu.mul_(ADAM_B1).add_(grad, alpha=1.0 - ADAM_B1)
-            nu.mul_(ADAM_B2).addcmul_(grad, grad, value=1.0 - ADAM_B2)
-            mu_hat = mu / (1.0 - ADAM_B1 ** step)
-            nu_hat = nu / (1.0 - ADAM_B2 ** step)
-            flat -= tc.learning_rate * mu_hat / (torch.sqrt(nu_hat) +
-                                                 ADAM_EPS)
-            iter_loss[t] = loss.detach()
-        t += 1
+        if rec is not None:
+            rec["iterations"] = t
     return [{k: v.detach() for k, v in p.items()} for p in unravel(flat)], \
         iter_loss, t
 
@@ -210,24 +217,26 @@ def _init_and_normalize(key, samples_raw: torch.Tensor, cfg: NSFConfig,
     part, the samples shuffled by a permutation from the key; the
     normalizer over all of them, and the normalized samples split.
     Returns (params, train rows, held-out rows or None, mean, std)."""
-    device = samples_raw.device
-    samples_raw = samples_raw.to(torch.float32)
-    k_init, k_shuffle = split_host(key, 2)
-    params = init_flow_params(torch_generator(k_init, device), cfg, device)
-    n = samples_raw.shape[0]
-    n_train = min(int(n * tc.training_set_frac), n)   # the rest held out
-    if n_train < n:
-        # the split needs the shuffle; the full-batch loss does not
-        perm = torch.randperm(n, generator=torch_generator(k_shuffle, device),
-                              device=device)
-        samples_raw = samples_raw[perm]
-    circ = torch.as_tensor(np.asarray(circular_dim_list, dtype=bool),
-                           device=device)
-    mean, std = compute_normalizer(samples_raw, circ,
-                                   scale_circular=scale_circular)
-    xn = normalize(samples_raw, mean, std, circ)
-    test = xn[n_train:] if n_train < n else None
-    return params, xn[:n_train], test, mean, std
+    with tracer.span("train.init"):
+        device = samples_raw.device
+        samples_raw = samples_raw.to(torch.float32)
+        k_init, k_shuffle = split_host(key, 2)
+        params = init_flow_params(torch_generator(k_init, device), cfg, device)
+        n = samples_raw.shape[0]
+        n_train = min(int(n * tc.training_set_frac), n)   # the rest held out
+        if n_train < n:
+            # the split needs the shuffle; the full-batch loss does not
+            perm = torch.randperm(
+                n, generator=torch_generator(k_shuffle, device),
+                device=device)
+            samples_raw = samples_raw[perm]
+        circ = torch.as_tensor(np.asarray(circular_dim_list, dtype=bool),
+                               device=device)
+        mean, std = compute_normalizer(samples_raw, circ,
+                                       scale_circular=scale_circular)
+        xn = normalize(samples_raw, mean, std, circ)
+        test = xn[n_train:] if n_train < n else None
+        return params, xn[:n_train], test, mean, std
 
 
 def _row_shard(n: int, mesh, axis) -> tuple:
@@ -346,65 +355,69 @@ def train_flows_batched(flow_params: List[dict], data: torch.Tensor,
     active = torch.ones((B, 1), dtype=torch.bool, device=data.device)
     w = plateau_window(tc)
     last_val, slow = [float("inf")] * B, [-1] * B
-    t = 0
-    while t < tc.max_iters:
-        stopping = []
-        if test_data is not None:
-            if (t + 1) % tc.validation_interval == 0 and \
-                    any(running[b] and slow[b] < 0 for b in range(B)):
-                with torch.no_grad():
-                    vals = val_losses(flat, test_data).tolist()
-                for b, val in enumerate(vals):
-                    if not running[b] or slow[b] >= 0:
-                        continue
-                    if val > last_val[b]:
-                        slow[b] = slower_stop_iteration(tc, t)
-                    else:
-                        last_val[b] = val
-            stopping = [b for b in range(B) if running[b] and
-                        0 <= slow[b] <= t + 1]
-        elif t % w == 0 and t >= 2 * w:
-            # each member's windows reduced as ``train_flow`` reduces them,
-            # so a member stops where its own fit would
-            cur = torch.stack([iter_loss[b, t - w:t].mean()
-                               for b in range(B)])
-            prev = torch.stack([iter_loss[b, t - 2 * w:t - w].mean()
-                                for b in range(B)])
-            prev = torch.where(prev == 0.0, torch.ones_like(prev), prev)
-            deltas = torch.abs(1.0 - cur / prev).tolist()
-            stopping = [b for b, delta in enumerate(deltas)
-                        if delta < tc.loss_delta_tol and running[b]]
-        if stopping:
-            for b in stopping:
-                running[b] = False
-                iter_loss[b, t] = iter_loss[b, max(t - 1, 0)]
-                n_iters[b] = t + 1
-            if not any(running):
-                break
-            active = torch.as_tensor(running, device=data.device)[:, None]
-        grad, loss = grad_and_loss(flat, data)
-        if shard is not None:
-            both = shard.reduce(torch.cat([grad, loss[:, None]], 1) *
-                                shard.scale)
-            grad, loss = both[:, :-1], both[:, -1]
-        with torch.no_grad():
-            step = t + 1
-            mu_new = mu.mul(ADAM_B1).add(grad, alpha=1.0 - ADAM_B1)
-            nu_new = nu.mul(ADAM_B2).addcmul(grad, grad, value=1.0 - ADAM_B2)
-            mu_hat = mu_new / (1.0 - ADAM_B1 ** step)
-            nu_hat = nu_new / (1.0 - ADAM_B2 ** step)
-            flat_new = flat - tc.learning_rate * mu_hat / (
-                torch.sqrt(nu_hat) + ADAM_EPS)
-            if all(running):
-                mu, nu, flat = mu_new, nu_new, flat_new
-                iter_loss[:, t] = loss
-            else:
-                mu = torch.where(active, mu_new, mu)
-                nu = torch.where(active, nu_new, nu)
-                flat = torch.where(active, flat_new, flat)
-                iter_loss[:, t] = torch.where(active[:, 0], loss,
-                                              iter_loss[:, t])
-        t += 1
+    with tracer.span("train.loop", members=B) as rec:
+        t = 0
+        while t < tc.max_iters:
+            stopping = []
+            if test_data is not None:
+                if (t + 1) % tc.validation_interval == 0 and \
+                        any(running[b] and slow[b] < 0 for b in range(B)):
+                    with torch.no_grad():
+                        vals = val_losses(flat, test_data).tolist()
+                    for b, val in enumerate(vals):
+                        if not running[b] or slow[b] >= 0:
+                            continue
+                        if val > last_val[b]:
+                            slow[b] = slower_stop_iteration(tc, t)
+                        else:
+                            last_val[b] = val
+                stopping = [b for b in range(B) if running[b] and
+                            0 <= slow[b] <= t + 1]
+            elif t % w == 0 and t >= 2 * w:
+                # each member's windows reduced as ``train_flow`` reduces
+                # them, so a member stops where its own fit would
+                cur = torch.stack([iter_loss[b, t - w:t].mean()
+                                   for b in range(B)])
+                prev = torch.stack([iter_loss[b, t - 2 * w:t - w].mean()
+                                    for b in range(B)])
+                prev = torch.where(prev == 0.0, torch.ones_like(prev), prev)
+                deltas = torch.abs(1.0 - cur / prev).tolist()
+                stopping = [b for b, delta in enumerate(deltas)
+                            if delta < tc.loss_delta_tol and running[b]]
+            if stopping:
+                for b in stopping:
+                    running[b] = False
+                    iter_loss[b, t] = iter_loss[b, max(t - 1, 0)]
+                    n_iters[b] = t + 1
+                if not any(running):
+                    break
+                active = torch.as_tensor(running, device=data.device)[:, None]
+            grad, loss = grad_and_loss(flat, data)
+            if shard is not None:
+                both = shard.reduce(torch.cat([grad, loss[:, None]], 1) *
+                                    shard.scale)
+                grad, loss = both[:, :-1], both[:, -1]
+            with torch.no_grad():
+                step = t + 1
+                mu_new = mu.mul(ADAM_B1).add(grad, alpha=1.0 - ADAM_B1)
+                nu_new = nu.mul(ADAM_B2).addcmul(grad, grad,
+                                                 value=1.0 - ADAM_B2)
+                mu_hat = mu_new / (1.0 - ADAM_B1 ** step)
+                nu_hat = nu_new / (1.0 - ADAM_B2 ** step)
+                flat_new = flat - tc.learning_rate * mu_hat / (
+                    torch.sqrt(nu_hat) + ADAM_EPS)
+                if all(running):
+                    mu, nu, flat = mu_new, nu_new, flat_new
+                    iter_loss[:, t] = loss
+                else:
+                    mu = torch.where(active, mu_new, mu)
+                    nu = torch.where(active, nu_new, nu)
+                    flat = torch.where(active, flat_new, flat)
+                    iter_loss[:, t] = torch.where(active[:, 0], loss,
+                                                  iter_loss[:, t])
+            t += 1
+        if rec is not None:
+            rec["iterations"] = t
     members = [unravel(flat[b]) for b in range(B)]
     params = [{k: torch.stack([m[f][k] for m in members])
                for k in PARAM_NAMES} for f in range(len(flow_params))]

@@ -94,6 +94,9 @@ def test_cuda_launch_counter_counts_each_flow(cuda):
     assert ar_inverse_kernel.launches == before + 2
     assert ar_inverse_kernel.shape_launches[
         ("specialized", 16, 8, 9)] == by_shape + 2
+    assert ar_inverse_kernel.counts[("specialized", 100, 16, 8, 9)] >= 2
+    assert ("specialized", 100, 16, 8, 9) in \
+        ar_inverse_kernel.launched_shapes
 
 
 def test_cuda_kernel_raises_on_bad_inputs(cuda):
@@ -376,6 +379,42 @@ def test_cuda_manhattan_plaza_lone_fits_take_the_graphed_path(
         str(tmp_path))
     lone = sum(1 for _, _, b in solver.bucket_log if b == 1)
     assert lone > 0 and len(made) == lone
+
+
+def test_cuda_graph_captures_equal_the_lone_fits(cuda):
+    """The tracer's ``graph_captures`` and ``train.capture`` spans on the
+    card: one capture a lone fit (a bucket of one), none for a batched
+    one, step by step."""
+    import nfisam_tpu_torch.core as core
+    import nfisam_tpu_torch.factors as factors
+    from nfisam_tpu_torch.examples.toy_examples.five_node_range_incremental \
+        import five_node_graph
+    from nfisam_tpu_torch.parallel import ParallelNFiSAM
+    from nfisam_tpu_torch.solver import NFiSAMArgs
+    from nfisam_tpu_torch.utils.tracing import tracer
+
+    solver = ParallelNFiSAM(NFiSAMArgs(
+        posterior_sample_num=200, local_sample_num=400, flow_iterations=200,
+        num_knots=8, learning_rate=0.03, elimination_method="pose_first",
+        seed=1), device=cuda)
+    lone_fits = 0
+    for nodes, fs in five_node_graph(core, factors):
+        for v in nodes:
+            solver.add_node(v)
+        for f in fs:
+            solver.add_factor(f)
+        logged = len(solver.bucket_log)
+        solver.update_physical_and_working_graphs()
+        row = tracer.rows[-1]
+        solver.fit_tree_density_models()
+        solver.sample_posterior()
+        lone = sum(1 for _, _, b in solver.bucket_log[logged:] if b == 1)
+        assert row.count("graph_captures") == row.calls("train.capture") \
+            == lone
+        assert row.count("cliques_trained") == len(
+            solver._temp_training_loss)
+        lone_fits += lone
+    assert lone_fits > 0
 
 
 def test_cuda_banked_floor_matches_the_cpu(cuda):
